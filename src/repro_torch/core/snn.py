@@ -11,7 +11,9 @@ Backends of the accumulate phase: ``"torch"`` (plain PyTorch ops),
 ``"spike_gemm"`` (block-skip kernels for Dense and Conv) and
 ``"spike_gemm_fused"`` (the fused GEMM+LIF kernel for Dense layers, the
 block-skip conv for Conv layers).  All three give the same spikes, so the
-default is the kernel path.
+default is the kernel path.  Every path is differentiable: on the kernel
+backends the layers are ``kernels.ops``' autograd Functions, whose backward
+runs the block-skip dW and dS kernels.
 """
 from __future__ import annotations
 
@@ -172,7 +174,8 @@ def _layer_current(spec: LayerSpec, p: dict, s_in: torch.Tensor,
     Dense layers run the block-skip GEMM on ``"spike_gemm"`` and a plain
     matmul on ``"torch"`` (``"spike_gemm_fused"`` never reaches here for a
     Dense layer: ``step`` runs the fused kernel).  Conv layers run the
-    block-skip conv on both kernel backends.  ``perm`` is an optional
+    block-skip conv on both kernel backends.  Both kernels are the
+    differentiable ``ops.spike_*_train``.  ``perm`` is an optional
     pre-synaptic permutation of a Dense layer, ``S[:, perm] @ W[perm, :]``,
     which leaves the product unchanged.
     """
@@ -182,12 +185,12 @@ def _layer_current(spec: LayerSpec, p: dict, s_in: torch.Tensor,
         if matmul_backend == "spike_gemm":
             if perm is not None:
                 flat, w = kernel_ops.apply_permutation(flat, w, perm)
-            return kernel_ops.spike_gemm(flat, w) + p["b"]
+            return kernel_ops.spike_gemm_train(flat, w) + p["b"]
         return flat @ w + p["b"]
     if isinstance(spec, Conv):
         if matmul_backend in ("spike_gemm", "spike_gemm_fused"):
-            out = kernel_ops.spike_conv(s_in, p["w"], stride=spec.stride,
-                                        padding=spec.padding)
+            out = kernel_ops.spike_conv_train(
+                s_in, p["w"], stride=spec.stride, padding=spec.padding)
         else:
             out = kernel_ref.spike_conv_ref(s_in, p["w"], stride=spec.stride,
                                             padding=spec.padding)
@@ -209,16 +212,53 @@ def _fused_dense_step(spec: Dense, p: dict, s_in: torch.Tensor,
     lif = spec.lif
     return kernel_ops.spike_gemm_lif_step(
         flat, w, p["b"], u_prev, s_prev, beta=lif.beta,
-        threshold=lif.threshold, reset_mechanism=lif.reset_mechanism)
+        threshold=lif.threshold, slope=lif.slope,
+        reset_mechanism=lif.reset_mechanism)
+
+
+class _OrPool(torch.autograd.Function):
+    """Non-overlapping max over (B, H, W, C) windows, VALID.  Its gradient
+    goes whole to the FIRST maximum of each window in row-major (dy, dx)
+    order, as XLA's ``reduce_window`` max does; ``amax`` would split it
+    among tied maxima, and spike windows tie all the time (every all-zero
+    window, every window with more than one spike).  Only that position is
+    saved, one byte per output for windows of up to 16 x 16."""
+
+    @staticmethod
+    def forward(ctx, s, window):
+        b, h, w, c = s.shape
+        oh, ow = h // window, w // window
+        x = s[:, :oh * window, :ow * window, :].reshape(
+            b, oh, window, ow, window, c)
+        if not ctx.needs_input_grad[0]:       # inference: no position
+            return x.amax(dim=(2, 4))
+        win = x.permute(0, 1, 3, 5, 2, 4).reshape(b, oh, ow, c,
+                                                  window * window)
+        out, first = win.max(dim=-1)          # ties: the lowest index
+        ctx.save_for_backward(first.to(
+            torch.uint8 if window * window <= 256 else torch.int64))
+        ctx.geometry = (tuple(s.shape), window)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (first,) = ctx.saved_tensors
+        (b, h, w, c), window = ctx.geometry
+        oh, ow = h // window, w // window
+        win = g.new_zeros((b, oh, ow, c, window * window))
+        win.scatter_(-1, first.long().unsqueeze(-1), g.unsqueeze(-1))
+        d = win.reshape(b, oh, ow, c, window, window).permute(
+            0, 1, 4, 2, 5, 3).reshape(b, oh * window, ow * window, c)
+        if (oh * window, ow * window) != (h, w):   # the dropped edge: zero
+            d = torch.nn.functional.pad(
+                d, (0, 0, 0, w - ow * window, 0, h - oh * window))
+        return d, None
 
 
 def _or_pool(s: torch.Tensor, window: int) -> torch.Tensor:
-    """Non-overlapping max (= OR of spikes) over (B, H, W, C), VALID: a
+    """Spike OR-pooling (non-overlapping max) over (B, H, W, C), VALID: a
     ragged right or bottom edge is dropped."""
-    b, h, w, c = s.shape
-    oh, ow = h // window, w // window
-    x = s[:, :oh * window, :ow * window, :]
-    return x.reshape(b, oh, window, ow, window, c).amax(dim=(2, 4))
+    return _OrPool.apply(s, window)
 
 
 def init_states(cfg: SNNConfig, batch: int, device: torch.device,
@@ -277,7 +317,9 @@ def apply(cfg: SNNConfig, params: Params, spike_input: torch.Tensor,
     Returns the output layer's (T, B, n_out) spike train; with
     ``return_all_layers`` the list of every spiking layer's train.  The
     trains are written into tensors allocated at the first step, so the
-    peak memory is one copy of them.
+    peak memory is one copy of them.  Under autograd each write is a
+    ``CopySlices`` node whose backward hands step t its slice of the
+    train's gradient.
     """
     backend = resolve_matmul_backend(matmul_backend)
     num_steps, batch = spike_input.shape[:2]

@@ -1,7 +1,7 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on its own into ``lib<name>.so`` with a
-plain C entry point; the three ``nvcc`` processes start together.  The
+plain C entry point; the ``nvcc`` processes start together.  The
 libraries go into ``_build/<digest>/`` beside this file, where the digest
 hashes the sources, the flags and the tile shape, so an edited source
 rebuilds and an unchanged one is loaded as it is.  Nothing is built at
@@ -27,7 +27,7 @@ import torch
 #: computed at (block_m, block_k).
 TILE = {"block_m": 32, "block_n": 64, "block_k": 32}
 
-SOURCES = ("spike_gemm", "spike_gemm_fused", "spike_conv")
+SOURCES = ("spike_gemm", "spike_gemm_fused", "spike_conv", "spike_gemm_bwd")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the forward kernels.
+"""Plain PyTorch versions of the kernels.
 
 Each function computes what its CUDA kernel computes, with separately
 rounded fp32 operations in the order of ``repro/kernels/ref.py``.  On a CPU
@@ -68,6 +68,29 @@ def block_flags_ref(spikes: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
                          f"({bm}, {bk}) tiles")
     blocks = spikes.reshape(m // bm, bm, k // bk, bk)
     return (blocks.sum(dim=(1, 3)) > 0).to(torch.int32)
+
+
+def block_flags_any_ref(x: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
+    """Per (row-tile, column-tile) occupancy of a SIGNED matrix: 1 where any
+    entry of the tile is nonzero (the gate of dS on a cotangent; a tile of
+    +x and -x sums to zero and still holds work).  ``x`` must already be
+    padded to tile multiples."""
+    m, k = x.shape
+    if m % bm or k % bk:
+        raise ValueError(f"matrix {tuple(x.shape)} is not padded to "
+                         f"({bm}, {bk}) tiles")
+    blocks = (x != 0).reshape(m // bm, bm, k // bk, bk)
+    return blocks.any(dim=3).any(dim=1).to(torch.int32)
+
+
+def spike_gemm_dw_ref(spikes: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Dense ``dW = Sᵀ @ g`` in fp32: (M, K) spikes, (M, N) cotangent."""
+    return spikes.to(torch.float32).T @ g.to(torch.float32)
+
+
+def spike_gemm_ds_ref(g: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Dense ``dS = g @ Wᵀ`` in fp32: (M, N) cotangent, (K, N) weights."""
+    return g.to(torch.float32) @ weights.to(torch.float32).T
 
 
 def spike_gemm_lif_ref(spikes: torch.Tensor, weights: torch.Tensor,

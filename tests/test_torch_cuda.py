@@ -5,13 +5,14 @@ false.  Run them on a GPU host with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 This file imports no JAX, so it runs where only PyTorch is installed.
 Weights on a 2^-8 grid keep every partial sum exact in fp32, so kernel and
-plain version must agree bit for bit.
+plain version must agree bit for bit, and so must a backward step of
+each autograd Function on the card and on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref, spike_gemm
+from repro_torch.kernels import ops, ref, spike_gemm, spike_gemm_bwd
 
 GRID = 2.0 ** -8
 
@@ -75,6 +76,80 @@ def test_cuda_spike_conv_equals_plain(cuda, stride, padding):
     got = ops.spike_conv(x, w, stride=stride, padding=padding)
     want = ref.spike_conv_ref(x, w, stride=stride, padding=padding)
     assert torch.equal(got, want)
+
+
+def _cotangent(rng, shape, density=0.6):
+    g = np.round(rng.normal(size=shape) * 16) / 16
+    return (g * (rng.random(shape) < density)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(70, 1000, 130), (5, 33, 7),
+                                   (4100, 18, 32)])
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 1.0])
+def test_cuda_dw_ds_equal_plain(cuda, m, k, n, density):
+    rng = np.random.default_rng(12)
+    s = _t(_spikes(rng, (m, k), density)).to(cuda)
+    g = _t(_cotangent(rng, (m, n))).to(cuda)
+    w = _t(_grid_weights(rng, (k, n))).to(cuda)
+    dw_before = spike_gemm_bwd.dw_launches
+    dw = ops.spike_gemm_bwd_dw(s, g)
+    ds = ops.spike_gemm_bwd_ds(g, w)
+    torch.cuda.synchronize()
+    assert spike_gemm_bwd.dw_launches == dw_before + 1
+    assert torch.equal(dw, ref.spike_gemm_dw_ref(s, g))
+    assert torch.equal(ds, ref.spike_gemm_ds_ref(g, w))
+    assert torch.equal(dw, ops.spike_gemm_bwd_dw(s, g))     # no run-to-run
+
+
+@pytest.mark.cuda
+def test_cuda_ds_does_not_skip_a_cancelling_tile(cuda):
+    g = torch.zeros(40, 64, device=cuda)
+    g[3, 5], g[7, 9] = 0.75, -0.75
+    ds = ops.spike_gemm_bwd_ds(g, torch.ones(6, 64, device=cuda))
+    assert torch.equal(ds[3], torch.full((6,), 0.75, device=cuda))
+    assert torch.equal(ds[7], torch.full((6,), -0.75, device=cuda))
+
+
+def _backward_step(fn, args, cots, device):
+    """Outputs and input gradients of one autograd step of ``fn``."""
+    targs = [_t(a).to(device).requires_grad_() for a in args]
+    outs = fn(*targs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    grads = torch.autograd.grad(outs, targs,
+                                [_t(c).to(device) for c in cots])
+    return [t.detach().cpu() for t in (*outs, *grads)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gemm", "conv", "fused-subtract",
+                                   "fused-zero"])
+def test_cuda_autograd_step_equals_cpu(cuda, which):
+    """One forward and backward of each Function on the card equals the
+    same step on the CPU (plain versions) bit for bit: grid operands, and
+    cotangents that enter the products on their grid."""
+    rng = np.random.default_rng(13)
+    if which == "gemm":
+        args = [_spikes(rng, (40, 300), 0.2), _grid_weights(rng, (300, 20))]
+        cots = [_cotangent(rng, (40, 20))]
+        fn = ops.spike_gemm_train
+    elif which == "conv":
+        args = [_spikes(rng, (2, 17, 15, 4), 0.2),
+                _grid_weights(rng, (3, 3, 4, 33))]
+        cots = [_cotangent(rng, (2, 9, 8, 33))]
+        fn = lambda x, w: ops.spike_conv_train(x, w, stride=2)
+    else:
+        reset = which.split("-")[1]
+        args = [_spikes(rng, (24, 200), 0.2), _grid_weights(rng, (200, 30)),
+                _grid_weights(rng, (30,)), _grid_weights(rng, (24, 30), 1.0),
+                _spikes(rng, (24, 30), 0.3)]
+        cots = [_cotangent(rng, (24, 30)), np.zeros((24, 30), np.float32)]
+        fn = lambda *a: ops.spike_gemm_lif_step(
+            *a, beta=0.5, threshold=1.0, reset_mechanism=reset)
+    got = _backward_step(fn, args, cots, cuda)
+    want = _backward_step(fn, args, cots, "cpu")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

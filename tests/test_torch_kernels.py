@@ -19,7 +19,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import spike_conv as jconv
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels import spike_conv, spike_gemm, spike_gemm_fused
+from repro_torch.kernels import (spike_conv, spike_gemm, spike_gemm_bwd,
+                                 spike_gemm_fused)
 
 torch.set_num_threads(2)
 
@@ -145,7 +146,7 @@ class TestSpikeConv:
         got = ops.spike_conv(_t(x), _t(w), stride=stride, padding=padding)
         np.testing.assert_array_equal(got.numpy(), want)
         # the lowering the card runs (patches, flags, one accumulate)
-        lowered = ops._conv_lowered(
+        lowered, _ = ops._conv_lowered(
             _t(x), _t(w), stride, padding, None,
             lambda p, w2, f: ref.spike_gemm_ref(p, w2))
         np.testing.assert_array_equal(lowered.numpy(), want)
@@ -241,8 +242,11 @@ class TestDispatch:
         ops.spike_conv(torch.ones(1, 5, 5, 2), torch.ones(3, 3, 2, 4))
         ops.spike_gemm_lif_step(s, w, torch.zeros(6), torch.zeros(8, 6),
                                 torch.zeros(8, 6), beta=0.9, threshold=1.0)
+        ops.spike_gemm_bwd_dw(s, torch.ones(8, 6))
+        ops.spike_gemm_bwd_ds(torch.ones(8, 6), w)
         assert ops.launch_counts() == {"spike_gemm": 0, "spike_gemm_lif": 0,
-                                       "spike_conv": 0}
+                                       "spike_conv": 0, "spike_gemm_dw": 0,
+                                       "spike_gemm_ds": 0}
 
     @pytest.mark.parametrize("launch", [
         lambda: spike_gemm.spike_gemm_cuda(
@@ -255,6 +259,12 @@ class TestDispatch:
             torch.ones(4, 4), torch.ones(4, 4), torch.ones(4),
             torch.ones(4, 4), torch.ones(4, 4),
             torch.ones(1, 1, dtype=torch.int32), beta=0.9, threshold=1.0),
+        lambda: spike_gemm_bwd.spike_gemm_dw_cuda(
+            torch.ones(4, 4), torch.ones(4, 4),
+            torch.ones(1, 1, dtype=torch.int32)),
+        lambda: spike_gemm_bwd.spike_gemm_ds_cuda(
+            torch.ones(4, 4), torch.ones(4, 4),
+            torch.ones(1, 1, dtype=torch.int32)),
     ])
     def test_kernel_wrappers_refuse_cpu_tensors(self, launch):
         with pytest.raises(ValueError, match="CUDA kernel"):

@@ -28,8 +28,8 @@ from repro.core import workloads as jworkloads
 from repro.core.accelerator import arch as jarch
 from repro.core.accelerator import cycle_model as jcycle
 from repro.core.accelerator import resources as jresources
-from repro_torch import convert
-from repro_torch.core import dse, snn, train_snn
+from repro_torch import convert, optim
+from repro_torch.core import dse, snn, train_snn, workloads
 from repro_torch.core.accelerator import arch, cycle_model, resources
 from repro_torch.core.workloads import registry
 
@@ -211,6 +211,11 @@ def test_port_imports_neither_jax_nor_repro():
     lambda cfg, x, y: train_snn.evaluate(cfg, [], x, y),
     lambda cfg, x, y: train_snn.dump_traces(cfg, [], x),
     lambda cfg, x, y: train_snn.trace_counts(cfg, [], x),
+    lambda cfg, x, y: train_snn.train(cfg, None),
+    lambda cfg, x, y: train_snn.init_cell(cfg, optim.adam(1e-3), 0),
+    lambda cfg, x, y: train_snn.profiled_permutations(cfg, [], x),
+    lambda cfg, x, y: convert.adam_state_from_numpy({"count": 0}),
+    lambda cfg, x, y: workloads.TraceCache(),
 ])
 def test_entry_points_refuse_a_silent_cpu(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises
