@@ -16,7 +16,10 @@ script then exits non-zero and never prints its result line):
    tolerance.
 3. The same for the backward kernels (dW, dS), with cotangents on a
    coarse grid; dW twice, for the same bytes; a cotangent tile of +x and
-   -x must not be skipped.
+   -x must not be skipped.  Then the kernel API's own kernels: ``lif_step``
+   (fp32 and bf16, both resets) on ragged shapes and on net-5's membrane
+   shapes, and ``penc_compact`` on ragged shapes at densities 0 .. 100%,
+   each equal to its plain version bit for bit.
 4. The inference path: net-5 (DVSGesture 128x128x2 - 32C3 - P2 - 32C3 -
    P2 - 512 - 256 - 11, T = 124) with seeded random weights on 64
    synthetic event streams: ``evaluate``, ``dump_traces``,
@@ -24,7 +27,12 @@ script then exits non-zero and never prints its result line):
    to 0 before each backend and read after it, so each kernel must launch
    exactly on the paths that use it (and the plain ``torch`` backend
    launches none); then the accelerator model and ``dse.search`` over
-   11,664 LHR candidates, and a profile of 8 forward steps.
+   11,664 LHR candidates, and a profile of 8 forward steps.  Before it, the
+   kernel API (``repro_torch.kernels``, the JAX package's API) as a user
+   calls it, with the counters set to 0 before and read after: every
+   layer's input traffic through ``penc_compact`` at each of the 124
+   steps, and the dense stack fc1-fc3 through ``spike_gemm_profiled`` and
+   ``lif_step``, whose spikes must equal the model's own bit for bit.
 5. The training path, net-5 at full width: one training step (forward and
    BPTT) on each backend from the same grid weights and batch, with the
    counters set to 0 before each backend and read after it (dW and dS
@@ -35,6 +43,12 @@ script then exits non-zero and never prints its result line):
    through the torch ``TraceCache`` in a temporary root, a miss (training,
    traces, fixed-point accuracy) with its launches counted, then a hit
    with equal params and counts.
+   Then the paper's study loop in another temporary root, at the
+   registry's widths and recipes: the Fig.-1 firing table of net-5's
+   inference traffic (``sparsity.analyze``); ``dse.coexplore`` over the
+   dvs-conv cells T = 8, 12, 16; a budgeted ``dse.explore`` of a joint
+   mnist-mlp space (EvolutionarySearch, ``train_budget=2``) and its repeat
+   on the same root, which must be all hits with an equal frontier.
 7. Time each kernel, its plain version and one library call at the main
    path's shapes on the main path's own traffic (the backward kernels on
    the operands of phase 5's middle time step), next to the least time
@@ -44,6 +58,7 @@ The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
+import importlib
 import json
 import math
 import statistics
@@ -73,15 +88,18 @@ DENSITIES = (0.0, 0.01, 0.1, 0.3, 1.0)
 NORMAL_RTOL = 1e-5
 # Kernels each backend must launch, and how many of the spiking layers
 # (conv1, conv2 | fc1, fc2, fc3) each of them serves in one time step.
-# Inference runs no backward kernel.
+# Inference runs no backward kernel, and no path of the model runs the
+# kernel API's lif_step or penc_compact: the model's LIF update is
+# core.lif, as in the JAX package.
+API_ONLY = {"lif_step": 0, "penc_compact": 0}
 EXPECTED = {"spike_gemm_fused": {"spike_gemm": 0, "spike_gemm_lif": 3,
                                  "spike_conv": 2, "spike_gemm_dw": 0,
-                                 "spike_gemm_ds": 0},
+                                 "spike_gemm_ds": 0, **API_ONLY},
             "spike_gemm": {"spike_gemm": 3, "spike_gemm_lif": 0,
                            "spike_conv": 2, "spike_gemm_dw": 0,
-                           "spike_gemm_ds": 0},
+                           "spike_gemm_ds": 0, **API_ONLY},
             "torch": {"spike_gemm": 0, "spike_gemm_lif": 0, "spike_conv": 0,
-                      "spike_gemm_dw": 0, "spike_gemm_ds": 0}}
+                      "spike_gemm_dw": 0, "spike_gemm_ds": 0, **API_ONLY}}
 # The same for one training step (forward and BPTT), per time step: dW for
 # each of the 5 spiking layers, dS for 4 of them, because conv1's input is
 # the encoded events, which need no gradient (dS runs only where
@@ -90,11 +108,21 @@ TRAIN_EXPECTED = {
     backend: {**counts, "spike_gemm_dw": 5 if backend != "torch" else 0,
               "spike_gemm_ds": 4 if backend != "torch" else 0}
     for backend, counts in EXPECTED.items()}
-# The backend on which each kernel's launches are reported.
+# The path on which each kernel's launches are reported: a backend of the
+# model, or the kernel API phase.
 LAUNCHED_ON = {"spike_gemm": "spike_gemm", "spike_gemm_lif": "spike_gemm_fused",
                "spike_conv": "spike_gemm_fused",
                "spike_gemm_dw": "spike_gemm_fused",
-               "spike_gemm_ds": "spike_gemm_fused"}
+               "spike_gemm_ds": "spike_gemm_fused",
+               "lif_step": "kernel API", "penc_compact": "kernel API"}
+# The kernel API phase: per time step, penc_compact on the input traffic of
+# each of the 5 spiking layers, and spike_gemm_profiled + lif_step on each
+# of the 3 dense layers.
+API_EXPECTED = {"spike_gemm": 3, "spike_gemm_lif": 0, "spike_conv": 0,
+                "spike_gemm_dw": 0, "spike_gemm_ds": 0, "lif_step": 3,
+                "penc_compact": 5}
+# The ECU's priority-encoder chunk (validate.penc_compress's default).
+PENC_CHUNK = 100
 BACKWARD = ("spike_gemm_dw", "spike_gemm_ds")
 # Training: the batch, the Adam steps, and the tolerance of each gradient
 # across backends, relative to the leaf's max |grad| on the default backend
@@ -112,12 +140,16 @@ LINES = {"spike_gemm": "src/repro/kernels/spike_gemm.py:49",
          "spike_gemm_lif": "src/repro/kernels/spike_gemm_fused.py:59",
          "spike_conv": "src/repro/kernels/spike_conv.py:91",
          "spike_gemm_dw": "src/repro/kernels/spike_gemm_bwd.py:52",
-         "spike_gemm_ds": "src/repro/kernels/spike_gemm_bwd.py:102"}
+         "spike_gemm_ds": "src/repro/kernels/spike_gemm_bwd.py:102",
+         "lif_step": "src/repro/kernels/lif_step.py:44",
+         "penc_compact": "src/repro/kernels/penc_compact.py:41"}
 SOURCES = {"spike_gemm": "src/repro_torch/kernels/csrc/spike_gemm.cu",
            "spike_gemm_lif": "src/repro_torch/kernels/csrc/spike_gemm_fused.cu",
            "spike_conv": "src/repro_torch/kernels/csrc/spike_conv.cu",
            "spike_gemm_dw": "src/repro_torch/kernels/csrc/spike_gemm_bwd.cu",
-           "spike_gemm_ds": "src/repro_torch/kernels/csrc/spike_gemm_bwd.cu"}
+           "spike_gemm_ds": "src/repro_torch/kernels/csrc/spike_gemm_bwd.cu",
+           "lif_step": "src/repro_torch/kernels/csrc/lif_step.cu",
+           "penc_compact": "src/repro_torch/kernels/csrc/penc_compact.cu"}
 
 
 def log(*args):
@@ -209,6 +241,18 @@ def conv_input_needed(torch, x, flags, kh: int, kw: int, stride: int,
     return float((hits > 0).sum())
 
 
+def dvs_cell_launches(wl, num_steps: int) -> dict:
+    """Kernel launches of one dvs-conv cell miss at T = ``num_steps``: per
+    Adam step the 2 convs and the 2 dense layers forward, dW on all 4, dS
+    on 3 (not on the events); then one inference each in evaluate (128 test
+    samples, one batch) and dump_traces."""
+    runs = wl.train_steps + 2
+    return {"spike_gemm": 0, "spike_gemm_lif": 2 * num_steps * runs,
+            "spike_conv": 2 * num_steps * runs,
+            "spike_gemm_dw": 4 * num_steps * wl.train_steps,
+            "spike_gemm_ds": 3 * num_steps * wl.train_steps, **API_ONLY}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -221,15 +265,21 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
 
+    from repro_torch import kernels as api
     from repro_torch import optim
-    from repro_torch.core import dse, snn, train_snn, workloads
+    from repro_torch.core import (dse, snn, sparsity, train_snn, validate,
+                                  workloads)
     from repro_torch.core.accelerator import arch
     from repro_torch.data import synthetic
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import spike_conv as conv_kernel
-    from repro_torch.kernels import spike_gemm as gemm_kernel
     from repro_torch.kernels import spike_gemm_bwd as bwd_kernel
     from repro_torch.kernels import spike_gemm_fused as fused_kernel
+    # the package exports the functions spike_gemm, lif_step and
+    # penc_compact, so their binding modules are reached by full name
+    gemm_kernel = importlib.import_module("repro_torch.kernels.spike_gemm")
+    lif_kernel = importlib.import_module("repro_torch.kernels.lif_step")
+    penc_kernel = importlib.import_module("repro_torch.kernels.penc_compact")
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -431,6 +481,73 @@ def main() -> int:
         del s, g, w, dw
         report["normal_weights_rel_err"] = normal
 
+    # ---- 3b. the kernel API's lif_step and penc_compact ------------------
+    net5_membranes = {"conv1": (BATCH, 128 * 128 * 32),
+                      "conv2": (BATCH, 64 * 64 * 32), "fc1": (BATCH, 512),
+                      "fc2": (BATCH, 256), "fc3": (BATCH, 11)}
+
+    def unaligned(x):
+        """A contiguous copy of ``x`` 4 bytes past a 16-byte boundary:
+        the kernels' unvectorised path."""
+        buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=dev)
+        y = buf[1:1 + x.numel()].view(x.shape)
+        y.copy_(x)
+        return y
+
+    def serial_penc_agrees(rows, idx, cnt, n_rows=3):
+        """The validator's serial chunked priority encoder on a few rows."""
+        for b in range(min(n_rows, rows.shape[0])):
+            serial = validate.penc_compress(
+                rows[b].cpu().numpy().astype(np.int64))
+            got = idx[b].cpu().numpy()
+            if got[got >= 0].tolist() != serial[:idx.shape[1]] or \
+                    int(cnt[b]) != len(serial):
+                raise AssertionError("penc_compact differs from "
+                                     "validate.penc_compress")
+
+    with Phase("kernel API kernels (lif_step, penc_compact) vs plain "
+               "versions"):
+        n_cases = 0
+        for shape in [(70, 1000), (5, 33), (3, 1), (1, 4099)] + list(
+                net5_membranes.values()):
+            u0 = torch.randn(shape, generator=gen, device=dev)
+            s0 = spikes(shape, 0.3)
+            cur = torch.randn(shape, generator=gen, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                args = [a.to(dtype) for a in (u0, s0, cur)]
+                if shape == (70, 1000):
+                    args += [unaligned(a) for a in args]
+                for reset in ("subtract", "zero"):
+                    kw = dict(beta=0.95, threshold=1.0,
+                              reset_mechanism=reset)
+                    for i in range(0, len(args), 3):
+                        got = ops.lif_step(*args[i:i + 3], **kw)
+                        if any(g.dtype != dtype for g in got):
+                            raise AssertionError("lif_step changed dtype")
+                        hold("lif_step", got,
+                             ref.lif_step_ref(*args[i:i + 3], **kw),
+                             f"{shape} {dtype} {reset}")
+                        n_cases += 1
+        del u0, s0, cur, args, got
+        for shape in [(70, 1000), (5, 33), (3, 1), (64, 4099),
+                      (BATCH, 64 * 64 * 32)]:
+            for d in DENSITIES:
+                x = spikes(shape, d)
+                for xx in ([x, unaligned(x)] if shape == (64, 4099)
+                           else [x]):
+                    for cap in (shape[1], PENC_CHUNK):
+                        idx, cnt = ops.penc_compact(xx, cap)
+                        hold("penc_compact", [idx, cnt],
+                             ref.penc_compact_ref(xx, cap),
+                             f"{shape} density {d} capacity {cap}")
+                        n_cases += 1
+                serial_penc_agrees(x, *ops.penc_compact(x, shape[1]))
+        torch.cuda.synchronize()
+        log(f"{n_cases} cases equal to the plain versions bit for bit "
+            f"(lif_step in fp32 and bf16, both resets, aligned and "
+            f"unaligned; penc_compact at capacity N and {PENC_CHUNK}); a "
+            f"few rows equal to validate.penc_compress")
+
     # ---- 4. the inference path ------------------------------------------
     cfg = snn.SNNConfig(
         "net-5", (128, 128, 2),
@@ -482,8 +599,90 @@ def main() -> int:
                     raise AssertionError(f"{name}'s input train is empty: "
                                          f"the kernels would skip it all")
                 probe[name] = train[t_mid].contiguous().clone()
+            api_trains = dict(zip(names, trains))
             del trains, x
         report["layers"] = layer_rates
+
+    with Phase("the kernel API on net-5's traffic (the path of lif_step "
+               "and penc_compact)"):
+        api_layers = dict(zip(names, zip(specs, [p for p in params if p])))
+        dense_names = ("fc1", "fc2", "fc3")
+        with torch.inference_mode():
+            perms = {name: api.firing_rate_permutation(
+                api_trains[name].reshape(NUM_STEPS * BATCH, -1).mean(0))
+                for name in dense_names}
+            outs = {name: torch.empty(
+                (NUM_STEPS, BATCH, api_layers[name][1]["w"].shape[1]),
+                device=dev) for name in dense_names}
+            state = {name: (torch.zeros(out.shape[1:], device=dev),
+                            torch.zeros(out.shape[1:], device=dev))
+                     for name, out in outs.items()}
+            addr_counts = torch.empty((NUM_STEPS, len(names), BATCH),
+                                      dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            for t in range(NUM_STEPS):
+                # the ECU's addresses of every layer's input spikes
+                for i, name in enumerate(names):
+                    rows = api_trains[name][t].reshape(BATCH, -1)
+                    idx, addr_counts[t, i] = api.penc_compact(
+                        rows, rows.shape[1])
+                # the dense stack, one layer after the other
+                s_in = api_trains["fc1"][t].reshape(BATCH, -1)
+                for name in dense_names:
+                    spec, p = api_layers[name]
+                    cur = api.spike_gemm_profiled(s_in, p["w"],
+                                                  perms[name]) + p["b"]
+                    u, s_in = api.lif_step(
+                        *state[name], cur, beta=spec.lif.beta,
+                        threshold=spec.lif.threshold,
+                        reset_mechanism=spec.lif.reset_mechanism)
+                    state[name] = (u, s_in)
+                    outs[name][t] = s_in
+            torch.cuda.synchronize()
+            api_s = time.perf_counter() - t0
+            api_launches = ops.launch_counts()
+            want = {k: NUM_STEPS * v for k, v in API_EXPECTED.items()}
+            log(f"  {NUM_STEPS} steps in {api_s:.2f} s; launches "
+                f"{api_launches}")
+            if api_launches != want:
+                raise AssertionError(f"the kernel API path launched "
+                                     f"{api_launches}, expected {want}")
+            for name, nxt in (("fc1", "fc2"), ("fc2", "fc3")):
+                if not torch.equal(outs[name], api_trains[nxt].reshape(
+                        outs[name].shape)):
+                    raise AssertionError(
+                        f"{name}'s spikes through spike_gemm_profiled + "
+                        f"lif_step differ from the model's input to {nxt}")
+            for i, name in enumerate(names):
+                sums = api_trains[name].reshape(NUM_STEPS, BATCH, -1).sum(-1)
+                if not torch.equal(addr_counts[:, i].double(),
+                                   sums.double()):
+                    raise AssertionError(f"penc_compact's counts of {name}'s "
+                                         f"input differ from its spikes")
+            log("  fc1's and fc2's spikes equal the model's own bit for bit; "
+                "every address count equals its row's spikes")
+            report["api_path"] = {
+                "seconds": api_s, "launches": api_launches,
+                "address_counts_mean": {
+                    name: float(addr_counts[:, i].double().mean())
+                    for i, name in enumerate(names)}}
+        # the counted run is over: compare penc_compact on one step of the
+        # real traffic with its plain version at capacity N and at the ECU's
+        # chunk, and a few rows with the validator's serial encoder
+        for name in names:
+            rows = probe[name].reshape(BATCH, -1)
+            for cap in (rows.shape[1], PENC_CHUNK):
+                idx, cnt = ops.penc_compact(rows, cap)
+                hold("penc_compact", [idx, cnt],
+                     ref.penc_compact_ref(rows, cap),
+                     f"{name}'s input traffic, step {t_mid}, capacity {cap}")
+            serial_penc_agrees(rows, *ops.penc_compact(rows, rows.shape[1]))
+        log(f"  penc_compact on step {t_mid}'s traffic of every layer equals "
+            f"its plain version (capacity N and {PENC_CHUNK}) and the "
+            f"serial encoder")
+        del api_trains, outs, state, addr_counts, perms
 
     with Phase("main path on every backend"):
         results, launches = {}, {}
@@ -768,15 +967,7 @@ def main() -> int:
             t0 = time.perf_counter()
             hit = cache.resolve(wl, assignment, seed=SEED, quant_bits=(8,))
             hit_s = time.perf_counter() - t0
-        # per Adam step: the 2 convs and the 2 dense layers forward, dW on
-        # all 4, dS on 3 (not on the events); then one inference each in
-        # evaluate (128 test samples, one batch) and dump_traces
-        runs = wl.train_steps + 2
-        want = {"spike_gemm": 0,
-                "spike_gemm_lif": 2 * CELL_STEPS * runs,
-                "spike_conv": 2 * CELL_STEPS * runs,
-                "spike_gemm_dw": 4 * CELL_STEPS * wl.train_steps,
-                "spike_gemm_ds": 3 * CELL_STEPS * wl.train_steps}
+        want = dvs_cell_launches(wl, CELL_STEPS)
         log(f"  miss: {miss_s:.1f} s (train {wl.train_steps} steps at batch "
             f"{wl.batch_size}, evaluate, dump_traces, 8-bit accuracy); hit: "
             f"{hit_s:.2f} s; float accuracy {miss.accuracy:.4f}, 8-bit "
@@ -805,6 +996,121 @@ def main() -> int:
                           "launches": cell_launches,
                           "mean_counts": [float(c.mean())
                                           for c in miss.counts]}
+
+    # ---- 6b. the paper's study loop on the torch cache ------------------
+    with Phase("the study loop: Fig.-1 sparsity, coexplore, a budgeted "
+               "explore and its repeat"):
+        study = {}
+        t0 = time.perf_counter()
+        stats = sparsity.analyze(cfg, params, torch.as_tensor(
+            data.x_test, device=dev).permute(1, 0, 2, 3, 4))
+        study["sparsity_s"] = time.perf_counter() - t0
+        log(f"  net-5's input traffic per layer (sparsity.analyze, "
+            f"{study['sparsity_s']:.2f} s):")
+        for line in sparsity.firing_table(stats).splitlines():
+            log(f"    {line}")
+        # the same traffic as the inference phase's trace_counts
+        if [s_.avg_spikes_per_step for s_ in stats] != [
+                float(np.mean(m)) for m in mean0] or [
+                s_.logical_neurons for s_ in stats] != [
+                32768, 131072, 32768, 512, 256]:
+            raise AssertionError("sparsity.analyze disagrees with the "
+                                 "inference phase's traces")
+        study["firing"] = [{"layer": s_.layer, "neurons": s_.logical_neurons,
+                            "avg_spikes": s_.avg_spikes_per_step,
+                            "firing_ratio": s_.firing_ratio}
+                           for s_ in stats]
+
+        def run(what, fn, cache):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            row = {"seconds": secs, "misses": cache.misses,
+                   "hits": cache.hits, "launches": ops.launch_counts(),
+                   "n_evaluated": res.n_evaluated,
+                   "frontier_size": len(res.frontier),
+                   "cells": len(res.cells)}
+            log(f"  {what}: {secs:.1f} s, {cache.misses} misses, "
+                f"{cache.hits} hits, {res.n_evaluated} candidates, "
+                f"frontier of {len(res.frontier)}; launches "
+                f"{row['launches']}")
+            if len(res.frontier) == 0 or any(
+                    row["launches"][k] for k in API_ONLY):
+                raise AssertionError(f"{what}: empty frontier, or the "
+                                     f"model's path launched lif_step or "
+                                     f"penc_compact")
+            study[what] = row
+            return res
+
+        with tempfile.TemporaryDirectory() as root:
+            dvs = workloads.get("dvs-conv")
+            cache = workloads.TraceCache(root=root)
+            co = run("coexplore dvs-conv", lambda: dse.coexplore(
+                "dvs-conv", num_steps=(8, 12, 16), population=(1.0,),
+                cache=cache), cache)
+            want = {k: sum(dvs_cell_launches(dvs, t)[k] for t in (8, 12, 16))
+                    for k in EXPECTED["torch"]}
+            if (cache.misses, cache.hits) != (3, 0) or \
+                    study["coexplore dvs-conv"]["launches"] != want:
+                raise AssertionError(f"coexplore: expected 3 misses and "
+                                     f"launches {want}")
+            err = co.frontier.columns["error"]
+            if not (np.isfinite(err).all() and (err >= 0).all()
+                    and (err <= 1).all()):
+                raise AssertionError("coexplore: error outside [0, 1]")
+            best = co.best_under("cycles", error=float(err.min()) + 0.05)
+            log(f"  fastest design within 5 points of the best error: "
+                f"{best}")
+            study["coexplore_best"] = best
+
+            mlp = workloads.get("mnist-mlp")
+            tmpl = arch.from_snn_config(mlp.build(4, 1.0))
+            space = (dse.SearchSpace(tmpl)
+                     .add_model("num_steps", (4, 8))
+                     .add_model("population", (0.5, 1.0))
+                     .add_per_layer("lhr", [dse.pow2_values(8)
+                                            for _ in tmpl.layers])
+                     .add_global("weight_bits", (4, 8)))
+
+            def explore(cache, budget):
+                return dse.explore(space, workload=mlp, cache=cache,
+                                   train_budget=budget,
+                                   strategy=dse.EvolutionarySearch(
+                                       population=16, generations=4,
+                                       seed=0))
+
+            cache = workloads.TraceCache(root=root)
+            first = run("explore mnist-mlp, train_budget=2",
+                        lambda: explore(cache, 2), cache)
+            spent = first.summary["train_budget"]["spent"]
+            if not 0 < cache.misses == spent <= 2:
+                raise AssertionError(f"explore: {cache.misses} misses for "
+                                     f"a budget of 2 ({spent} spent)")
+            # the repeat: the same study on the same root, with its budget
+            # already spent as the first left it, may only hit
+            cache = workloads.TraceCache(root=root)
+            budget = workloads.TrainingBudget(2)
+            budget.charge(spent)
+            again = run("the same explore again", lambda: explore(
+                cache, budget), cache)
+            if cache.misses != 0 or cache.hits != len(again.cells):
+                raise AssertionError("the repeat explore was not all hits")
+            same = (first.frontier.columns.keys()
+                    == again.frontier.columns.keys() and all(
+                        np.array_equal(first.frontier.columns[k], v)
+                        for k, v in again.frontier.columns.items()))
+            if not same or {k: v for k, v in first.summary.items()
+                            if k != "cache"} != {
+                    k: v for k, v in again.summary.items() if k != "cache"}:
+                raise AssertionError("the repeat explore's frontier or "
+                                     "summary differs")
+            log(f"  the repeat is all hits with an equal frontier and "
+                f"summary: {again.summary}")
+            study["explore_summary"] = first.summary
+        report["study"] = study
 
     # ---- 7. timing at the main path's shapes and traffic -----------------
     layers = dict(zip(names, zip(specs, [p for p in params if p])))
@@ -932,6 +1238,55 @@ def main() -> int:
                     4 * (g_read + k * w_cols + m * k + gflags.numel()),
                     2 * nnz * k)
             per_layer.append(row)
+        # the kernel API's kernels at net-5's shapes, one time step: the
+        # LIF update of every layer's membrane (fp32; bf16 apart), and the
+        # addresses of every layer's input traffic at step T/2 (capacity N;
+        # the ECU's chunk apart).  Neither has one PyTorch call computing
+        # the same function (torch.nonzero neither packs per row nor caps).
+        for name, shape in net5_membranes.items():
+            lif = layers[name][0].lif
+            u0 = torch.randn(shape, generator=gen, device=dev)
+            s0 = spikes(shape, 0.1)
+            cur = torch.randn(shape, generator=gen, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                args = [a.to(dtype) for a in (u0, s0, cur)]
+                kw = dict(beta=lif.beta, threshold=lif.threshold,
+                          reset_mechanism=lif.reset_mechanism)
+                row = {"kernel": "lif_step" if dtype == torch.float32
+                       else "lif_step_bf16", "layer": name,
+                       "shape": list(shape), "dtype": str(dtype),
+                       "ms": median_ms(torch, lambda: ops.lif_step(
+                           *args, **kw)),
+                       "kernel_ms": median_ms(torch, lambda: lif_kernel
+                                              .lif_step_cuda(*args, **kw)),
+                       "plain_ms": median_ms(torch, lambda: ref.lif_step_ref(
+                           *args, **kw)),
+                       "library_ms": None}
+                # 3 reads and 2 writes of each element; 5 operations each
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    5 * args[0].element_size() * args[0].numel(),
+                    5 * args[0].numel())
+                per_layer.append(row)
+        del u0, s0, cur, args
+        for name in names:
+            rows = probe[name].reshape(BATCH, -1)
+            b, n = rows.shape
+            for cap in (n, PENC_CHUNK):
+                row = {"kernel": "penc_compact" if cap == n
+                       else "penc_compact_chunk", "layer": name,
+                       "shape": [b, n], "capacity": cap,
+                       "input_rate": float(rows.mean()),
+                       "ms": median_ms(torch, lambda: ops.penc_compact(
+                           rows, cap)),
+                       "kernel_ms": median_ms(torch, lambda: penc_kernel
+                                              .penc_compact_cuda(rows, cap)),
+                       "plain_ms": median_ms(torch, lambda: ref
+                                             .penc_compact_ref(rows, cap)),
+                       "library_ms": None}
+                # read every spike once, write every address slot and count
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    4 * (b * n + b * (cap + 1)), b * n)
+                per_layer.append(row)
         if sorted(r["layer"] for r in per_layer
                   if r["kernel"] == "spike_gemm_dw") != sorted(net5_bwd) or \
                 len([r for r in per_layer
@@ -948,18 +1303,21 @@ def main() -> int:
         lib = [r["library_ms"] for r in rows]
         bound = sum(r["bound_ms"] for r in rows)
         # forward kernels: launches of the inference path; backward
-        # kernels: of one net-5 training step
+        # kernels: of one net-5 training step; the kernel API's own: of the
+        # kernel API phase
         counted = train_launches if name in BACKWARD else launches
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": LINES[name],
-            "launches": counted[LAUNCHED_ON[name]][name],
+            "launches": (api_launches[name] if name in API_ONLY
+                         else counted[LAUNCHED_ON[name]][name]),
             "launched_on": LAUNCHED_ON[name],
             "launches_by_backend": {b: c[name] for b, c in counted.items()},
             "training_launches_by_backend": {
                 b: c[name] for b, c in train_launches.items()},
+            "api_path_launches": api_launches[name],
             "max_abs_err": errs[name],
-            "normal_weights_rel_err": normal[name],
+            "normal_weights_rel_err": normal.get(name),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": bound,

@@ -1,12 +1,12 @@
-"""Hardware-only design-space search.
+"""Hardware-only search: an exact thin wrapper over ``dse.explore``.
 
-``search`` walks a hardware ``SearchSpace`` through the ask/tell strategy
-contract: each asked chunk of digit rows is assembled into axis columns,
-evaluated by the vectorised cycle model and cost library, merged into the
-incremental Pareto accumulator, and told back to the strategy.  The chunk
-order is the JAX package's (``dse.study.Study._step_ask_tell`` /
-``_evaluate_hardware``), so a grid search returns the same frontier bit
-for bit.  Model axes (which need training per cell) are not ported yet.
+``search`` keeps its seed-era signature and numerics, but the loop now
+lives in ``dse.study``: the strategy is driven through the ask/tell
+contract and each asked chunk flows through the vectorised evaluator into
+the incremental Pareto accumulator — a ``GridSearch`` study reproduces the
+pre-ask/tell frontier bit-exactly (chunk boundaries and evaluation order
+are unchanged; tested).  For joint model x hardware searches, budgeted
+strategies and resumable studies, call ``dse.explore`` directly.
 """
 from __future__ import annotations
 
@@ -17,17 +17,17 @@ import numpy as np
 
 from repro_torch.core.accelerator import resources
 from repro_torch.core.accelerator.arch import AcceleratorConfig
-from repro_torch.core.dse.evaluate import METRICS, evaluate_columns
-from repro_torch.core.dse.pareto import ParetoAccumulator
 from repro_torch.core.dse.space import SearchSpace
-from repro_torch.core.dse.strategies import GridSearch, Strategy
+from repro_torch.core.dse.study import (DEFAULT_OBJECTIVES,
+                                        FrontierQueries, explore)
 from repro_torch.core.dse.table import CandidateTable
 
-DEFAULT_OBJECTIVES = ("cycles", "lut", "bram", "energy")
+__all__ = ["DEFAULT_OBJECTIVES", "FrontierQueries", "SearchResult",
+           "auto_select", "search"]
 
 
 @dataclasses.dataclass
-class SearchResult:
+class SearchResult(FrontierQueries):
     config: AcceleratorConfig
     space: SearchSpace
     objectives: tuple[str, ...]
@@ -35,42 +35,28 @@ class SearchResult:
     n_evaluated: int
     table: Optional[CandidateTable] = None    # all rows iff keep_all
 
-    def _rows(self, needed: Sequence[str]) -> CandidateTable:
-        """Full table when kept; else the frontier, which is only a valid
-        search set when every queried column was a search objective."""
-        if self.table is not None:
-            return self.table
-        missing = [c for c in needed if c not in self.objectives]
-        if missing:
-            raise ValueError(
-                f"columns {missing} were not search objectives "
-                f"{self.objectives}; the retained frontier is only optimal "
-                f"over the objectives — re-search with them included, or "
-                f"with keep_all=True")
-        return self.frontier
+    def best_within_latency(self, max_cycles: float) -> Optional[dict]:
+        return self.best_under("lut", cycles=max_cycles)
 
-    def best_under(self, minimize: str, **caps: float) -> Optional[dict]:
-        """Row minimizing ``minimize`` among rows with col <= cap for every
-        kwarg — e.g. ``best_under("lut", cycles=20e3)``."""
-        t = self._rows((minimize, *caps))
-        if len(t) == 0:
-            return None
-        ok = np.ones(len(t), dtype=bool)
-        for col, cap in caps.items():
-            ok &= np.asarray(t.columns[col], np.float64) <= cap
-        if not ok.any():
-            return None
-        sub = t.take(ok)
-        return sub.row(sub.argmin(minimize))
+    def best_within_area(self, max_lut: float) -> Optional[dict]:
+        return self.best_under("cycles", lut=max_lut)
 
     def min_energy(self) -> Optional[dict]:
         t = self._rows(("energy",))
         return t.row(t.argmin("energy")) if len(t) else None
 
+    def config_for(self, row: dict) -> AcceleratorConfig:
+        """Materialize a result row as a concrete AcceleratorConfig."""
+        return self.config.with_updates(
+            lhr=row.get("lhr"), mem_blocks=row.get("mem_blocks"),
+            weight_bits=row.get("weight_bits"),
+            penc_width=row.get("penc_width"),
+            clock_mhz=row.get("clock_mhz"))
+
 
 def search(cfg: AcceleratorConfig, counts: Sequence[np.ndarray],
            space: Optional[SearchSpace] = None,
-           strategy: Union[str, Strategy] = "grid",
+           strategy: Union[str, object] = "grid",
            objectives: Sequence[str] = DEFAULT_OBJECTIVES,
            chunk_size: int = 65536,
            keep_all: bool = False,
@@ -88,37 +74,37 @@ def search(cfg: AcceleratorConfig, counts: Sequence[np.ndarray],
         raise ValueError(
             f"space has model axes "
             f"{[ax.name for ax in space.model_axes]}; those require "
-            f"training per cell, which this package does not do yet")
-    if chunk_size < 1:
-        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
-    objectives = tuple(objectives)
-    for obj in objectives:
-        if obj not in METRICS:
-            raise ValueError(f"unknown objective {obj!r}; pick from {METRICS}")
-    if isinstance(strategy, str):
-        if strategy != "grid":
-            raise ValueError(f"unknown strategy name {strategy!r}; pass a "
-                             f"strategy instance for non-grid search")
-        strategy = GridSearch(chunk_size)
-    strategy.bind(space, objectives)
-    acc = ParetoAccumulator(objectives)
-    kept: list[CandidateTable] = []
-    n_evaluated = 0
-    while True:
-        digits = strategy.ask(chunk_size)
-        if len(digits) == 0:
-            break
-        cols = space.assemble(digits)
-        metrics = evaluate_columns(cfg, counts, cols, lib=lib)
-        chunk = CandidateTable({**cols, **metrics})
-        acc.update(chunk)
-        if keep_all:
-            kept.append(chunk)
-        n_evaluated += len(chunk)
-        strategy.tell(digits, np.stack(
-            [np.asarray(chunk.columns[k], np.float64) for k in objectives],
-            axis=1))
-    return SearchResult(config=cfg, space=space, objectives=objectives,
-                        frontier=acc.frontier, n_evaluated=n_evaluated,
-                        table=CandidateTable.concat(kept) if keep_all
-                        else None)
+            f"training/cache resolution per cell — use dse.coexplore")
+    study = explore(space, config=cfg, counts=counts, strategy=strategy,
+                    objectives=objectives, chunk_size=chunk_size,
+                    keep_all=keep_all, lib=lib)
+    return SearchResult(config=cfg, space=space, objectives=study.objectives,
+                        frontier=study.frontier,
+                        n_evaluated=study.n_evaluated, table=study.table)
+
+
+def auto_select(cfg: AcceleratorConfig, counts: Sequence[np.ndarray],
+                max_cycles: Optional[float] = None,
+                max_lut: Optional[float] = None,
+                space: Optional[SearchSpace] = None,
+                **kw) -> Optional[tuple[AcceleratorConfig, dict]]:
+    """The paper's "best mapping" picks over an arbitrary search space:
+    smallest design within a latency budget (``max_cycles``), fastest within
+    an area budget (``max_lut``), or minimum energy when no budget is given.
+    Returns (materialized config, result row) or None if no design fits."""
+    result = search(cfg, counts, space=space,
+                    objectives=("cycles", "lut", "energy"), **kw)
+    caps = {}
+    if max_cycles is not None:
+        caps["cycles"] = max_cycles
+    if max_lut is not None:
+        caps["lut"] = max_lut
+    if max_cycles is not None:
+        row = result.best_under("lut", **caps)
+    elif max_lut is not None:
+        row = result.best_under("cycles", **caps)
+    else:
+        row = result.min_energy()
+    if row is None:
+        return None
+    return result.config_for(row), row

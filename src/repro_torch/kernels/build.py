@@ -27,7 +27,8 @@ import torch
 #: computed at (block_m, block_k).
 TILE = {"block_m": 32, "block_n": 64, "block_k": 32}
 
-SOURCES = ("spike_gemm", "spike_gemm_fused", "spike_conv", "spike_gemm_bwd")
+SOURCES = ("spike_gemm", "spike_gemm_fused", "spike_conv", "spike_gemm_bwd",
+           "lif_step", "penc_compact")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"

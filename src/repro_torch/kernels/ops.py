@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import lif_step as lif_kernel
+from repro_torch.kernels import penc_compact as penc_kernel
 from repro_torch.kernels import ref
 from repro_torch.kernels import spike_conv as conv_kernel
 from repro_torch.kernels import spike_gemm as gemm_kernel
@@ -32,7 +34,9 @@ KERNELS = {"spike_gemm": (gemm_kernel, "launches"),
            "spike_gemm_lif": (fused_kernel, "launches"),
            "spike_conv": (conv_kernel, "launches"),
            "spike_gemm_dw": (bwd_kernel, "dw_launches"),
-           "spike_gemm_ds": (bwd_kernel, "ds_launches")}
+           "spike_gemm_ds": (bwd_kernel, "ds_launches"),
+           "lif_step": (lif_kernel, "launches"),
+           "penc_compact": (penc_kernel, "launches")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -62,6 +66,35 @@ def _on_cuda(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no spike kernel for tensors on {x.device}")
+
+
+def lif_step(u_prev: torch.Tensor, s_prev: torch.Tensor,
+             current: torch.Tensor, *, beta: float, threshold: float,
+             reset_mechanism: str = "subtract"
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Elementwise LIF update on (B, N) fp32 or bfloat16 operands, forward
+    only; ``(u, s)`` come back in the operands' dtype.  The kernel picks its
+    own launch shape (the JAX package's ``block_b``/``block_n`` are TPU
+    tiles and are not taken)."""
+    lif = dict(beta=beta, threshold=threshold,
+               reset_mechanism=reset_mechanism)
+    if _on_cuda(u_prev):
+        return lif_kernel.lif_step_cuda(u_prev.contiguous(),
+                                        s_prev.contiguous(),
+                                        current.contiguous(), **lif)
+    return ref.lif_step_ref(u_prev, s_prev, current, **lif)
+
+
+def penc_compact(spikes: torch.Tensor, capacity: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Spike-address extraction (the ECU's PENC) on (B, N) {0,1} spike
+    rows: ``(indices (B, capacity) int32, -1 padded; counts (B,) int32)``,
+    where a count is the row's true number of spikes, not cut at
+    ``capacity``."""
+    capacity = int(capacity)
+    if _on_cuda(spikes):
+        return penc_kernel.penc_compact_cuda(spikes.contiguous(), capacity)
+    return ref.penc_compact_ref(spikes, capacity)
 
 
 def block_flags(spikes: torch.Tensor, *, block_m: int = TILE["block_m"],
@@ -345,3 +378,11 @@ def apply_permutation(spikes: torch.Tensor, weights: torch.Tensor,
                       perm: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     return spikes[:, perm], weights[perm, :]
+
+
+def spike_gemm_profiled(spikes: torch.Tensor, weights: torch.Tensor,
+                        perm: torch.Tensor, **kw) -> torch.Tensor:
+    """``spike_gemm`` with a profile-guided pre-synaptic permutation; equal
+    to the unpermuted product (a permutation of the sum's terms)."""
+    s, w = apply_permutation(spikes, weights, perm)
+    return spike_gemm(s, w, **kw)

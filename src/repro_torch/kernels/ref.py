@@ -19,14 +19,22 @@ def lif_step_ref(u_prev: torch.Tensor, s_prev: torch.Tensor,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """LIF membrane update, each operation rounded on its own:
     subtract reset ``((beta*u) + cur) - (thr*s)``, zero reset
-    ``((beta*u) * (1-s)) + cur``; then ``s = u > thr``."""
+    ``((beta*u) * (1-s)) + cur``; then ``s = u > thr``.
+
+    ``beta`` and ``threshold`` are first rounded to the dtype of ``u_prev``
+    (as ``repro/kernels/ref.py`` does with ``jnp.asarray(beta, dt)``); in
+    bfloat16 every operation runs in fp32 and rounds its result to
+    bfloat16, as PyTorch's eager elementwise ops do.  The two constants are
+    0-dim CPU tensors, which a CUDA op takes as scalars without a copy."""
+    beta_t = torch.tensor(beta, dtype=u_prev.dtype)
+    thr_t = torch.tensor(threshold, dtype=u_prev.dtype)
     if reset_mechanism == "subtract":
-        u = beta * u_prev + current - threshold * s_prev
+        u = beta_t * u_prev + current - thr_t * s_prev
     elif reset_mechanism == "zero":
-        u = beta * u_prev * (1 - s_prev) + current
+        u = beta_t * u_prev * (1 - s_prev) + current
     else:
         raise ValueError(f"unknown reset mechanism {reset_mechanism!r}")
-    return u, (u > threshold).to(u.dtype)
+    return u, (u > thr_t).to(u.dtype)
 
 
 def spike_gemm_ref(spikes: torch.Tensor, weights: torch.Tensor
@@ -56,6 +64,27 @@ def spike_conv_ref(s_in: torch.Tensor, weights: torch.Tensor, *,
     with torch.backends.cudnn.flags(enabled=False):
         out = F.conv2d(x, weights.permute(3, 2, 0, 1), stride=stride)
     return out.permute(0, 2, 3, 1).contiguous()
+
+
+def penc_compact_ref(spikes: torch.Tensor, capacity: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """PENC spike-address compaction: per row of (B, N) spikes, the
+    ascending indices of the entries > 0 packed to the front, -1 padded
+    and cut at ``capacity``, as (B, capacity) int32; and each row's true
+    spike count, NOT cut at ``capacity``, as (B,) int32."""
+    b, n = spikes.shape
+    fired = spikes > 0
+    counts = fired.sum(-1, dtype=torch.int32)
+    # a stable sort of the "not fired" keys puts the fired columns first,
+    # each group in ascending column order
+    order = torch.sort((~fired).to(torch.uint8), dim=-1, stable=True)[1]
+    width = min(capacity, n)
+    idx = torch.full((b, capacity), -1, dtype=torch.int32,
+                     device=spikes.device)
+    slot = torch.arange(width, device=spikes.device)
+    idx[:, :width] = torch.where(slot < counts[:, None],
+                                 order[:, :width].to(torch.int32), -1)
+    return idx, counts
 
 
 def block_flags_ref(spikes: torch.Tensor, bm: int, bk: int) -> torch.Tensor:

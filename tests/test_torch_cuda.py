@@ -8,11 +8,20 @@ Weights on a 2^-8 grid keep every partial sum exact in fp32, so kernel and
 plain version must agree bit for bit, and so must a backward step of
 each autograd Function on the card and on the CPU.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref, spike_gemm, spike_gemm_bwd
+from repro_torch.kernels import ops, ref, spike_gemm_bwd
+
+# the package exports the functions spike_gemm, lif_step and penc_compact
+# (the JAX package's kernel API), so their binding modules are reached by
+# their full names
+spike_gemm = importlib.import_module("repro_torch.kernels.spike_gemm")
+lif_kernel = importlib.import_module("repro_torch.kernels.lif_step")
+penc_kernel = importlib.import_module("repro_torch.kernels.penc_compact")
 
 GRID = 2.0 ** -8
 
@@ -168,3 +177,78 @@ def test_cuda_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         spike_gemm.spike_gemm_cuda(s, w, flags[:1])
     with pytest.raises(ValueError, match="expected"):
         spike_gemm.spike_gemm_cuda(s, w.cpu(), flags)
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` that starts 4 bytes past a 16-byte
+    boundary, so the kernels take their unvectorised path."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    y = buf[1:1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reset", ["subtract", "zero"])
+@pytest.mark.parametrize("shape,aligned", [((8, 512), True), ((1, 100), True),
+                                           ((3, 701), True), ((5, 1), True),
+                                           ((64, 4099), True),
+                                           ((16, 2048), False)])
+def test_cuda_lif_step_equals_plain(cuda, shape, aligned, reset, dtype):
+    """Bit for bit in both dtypes: the kernel rounds each operation as the
+    plain version's PyTorch ops do."""
+    rng = np.random.default_rng(14)
+    args = [_t(rng.normal(size=shape).astype(np.float32)),
+            _t(_spikes(rng, shape, 0.3)),
+            _t(rng.normal(size=shape).astype(np.float32))]
+    args = [a.to(cuda, dtype) for a in args]
+    if not aligned:
+        args = [_unaligned(a) for a in args]
+    kw = dict(beta=0.9, threshold=0.7, reset_mechanism=reset)
+    before = lif_kernel.launches
+    got = ops.lif_step(*args, **kw)
+    torch.cuda.synchronize()
+    assert lif_kernel.launches == before + 1
+    want = ref.lif_step_ref(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,aligned", [((8, 128), True), ((3, 100), True),
+                                           ((16, 777), True),
+                                           ((4, 9000), True),
+                                           ((5, 4100), False)])
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.1, 0.9, 1.0])
+def test_cuda_penc_compact_equals_plain(cuda, shape, aligned, density):
+    rng = np.random.default_rng(15)
+    s = _t(_spikes(rng, shape, density)).to(cuda)
+    if not aligned:
+        s = _unaligned(s)
+    for capacity in (shape[1], 100, 7, 0, shape[1] + 5):
+        before = penc_kernel.launches
+        idx, cnt = ops.penc_compact(s, capacity)
+        torch.cuda.synchronize()
+        assert penc_kernel.launches == before + 1
+        want_idx, want_cnt = ref.penc_compact_ref(s, capacity)
+        assert idx.dtype == cnt.dtype == torch.int32
+        assert torch.equal(idx, want_idx) and torch.equal(cnt, want_cnt)
+
+
+@pytest.mark.cuda
+def test_cuda_new_wrappers_refuse_what_the_kernels_cannot_take(cuda):
+    x = torch.ones(4, 8, device=cuda)
+    with pytest.raises(TypeError, match="lif_step takes"):
+        lif_kernel.lif_step_cuda(x.double(), x.double(), x.double(),
+                                 beta=0.9, threshold=1.0)
+    with pytest.raises(TypeError, match="dtype"):
+        lif_kernel.lif_step_cuda(x, x.bfloat16(), x, beta=0.9, threshold=1.0)
+    with pytest.raises(ValueError, match="shape"):
+        lif_kernel.lif_step_cuda(x, x[:2], x, beta=0.9, threshold=1.0)
+    with pytest.raises(TypeError, match="dtype"):
+        penc_kernel.penc_compact_cuda(x.double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        penc_kernel.penc_compact_cuda(x.t(), 4)
+    with pytest.raises(ValueError, match="capacity"):
+        penc_kernel.penc_compact_cuda(x, -1)

@@ -8,6 +8,7 @@ fp32, so the comparisons are exact whatever the summation order.  The CUDA
 kernels themselves are held against the plain versions on a card by
 tests/test_torch_cuda.py.
 """
+import importlib
 import stat
 
 import jax.numpy as jnp
@@ -18,9 +19,15 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import spike_conv as jconv
-from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels import (spike_conv, spike_gemm, spike_gemm_bwd,
-                                 spike_gemm_fused)
+from repro_torch.kernels import (build, ops, ref, spike_conv,
+                                 spike_gemm_bwd, spike_gemm_fused)
+
+# the package exports the functions spike_gemm, lif_step and penc_compact
+# (the JAX package's kernel API), so their binding modules are reached by
+# their full names
+spike_gemm = importlib.import_module("repro_torch.kernels.spike_gemm")
+lif_kernel = importlib.import_module("repro_torch.kernels.lif_step")
+penc_kernel = importlib.import_module("repro_torch.kernels.penc_compact")
 
 torch.set_num_threads(2)
 
@@ -244,9 +251,13 @@ class TestDispatch:
                                 torch.zeros(8, 6), beta=0.9, threshold=1.0)
         ops.spike_gemm_bwd_dw(s, torch.ones(8, 6))
         ops.spike_gemm_bwd_ds(torch.ones(8, 6), w)
+        ops.lif_step(torch.zeros(8, 6), torch.zeros(8, 6), torch.ones(8, 6),
+                     beta=0.9, threshold=1.0)
+        ops.penc_compact(s, 16)
         assert ops.launch_counts() == {"spike_gemm": 0, "spike_gemm_lif": 0,
                                        "spike_conv": 0, "spike_gemm_dw": 0,
-                                       "spike_gemm_ds": 0}
+                                       "spike_gemm_ds": 0, "lif_step": 0,
+                                       "penc_compact": 0}
 
     @pytest.mark.parametrize("launch", [
         lambda: spike_gemm.spike_gemm_cuda(
@@ -265,6 +276,10 @@ class TestDispatch:
         lambda: spike_gemm_bwd.spike_gemm_ds_cuda(
             torch.ones(4, 4), torch.ones(4, 4),
             torch.ones(1, 1, dtype=torch.int32)),
+        lambda: lif_kernel.lif_step_cuda(
+            torch.ones(4, 4), torch.ones(4, 4), torch.ones(4, 4), beta=0.9,
+            threshold=1.0),
+        lambda: penc_kernel.penc_compact_cuda(torch.ones(4, 4), 4),
     ])
     def test_kernel_wrappers_refuse_cpu_tensors(self, launch):
         with pytest.raises(ValueError, match="CUDA kernel"):
