@@ -10,10 +10,11 @@ script then exits non-zero and never prints its result line):
 1. TF32 off for matmuls and cuDNN; the card's name and power limit; build
    the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
 2. Hold each forward kernel against its plain PyTorch version on the card,
-   at spike densities 0 .. 100%, on ragged shapes and on net-5's own.
-   Weights on the 2^-12 grid make every partial sum exact in fp32, so the
-   results must be equal; normal weights are checked to a stated
-   tolerance.
+   at spike densities 0 .. 100%, on ragged shapes (one of them a large K
+   that takes the dense kernels' split path) and on net-5's own.  Weights
+   on the 2^-12 grid make every partial sum exact in fp32, so the results
+   must be equal; normal weights are checked to a stated tolerance, and
+   the dense kernels must give the same bytes on two calls.
 3. The same for the backward kernels (dW, dS), with cotangents on a
    coarse grid; dW twice, for the same bytes; a cotangent tile of +x and
    -x must not be skipped.  Then the kernel API's own kernels: ``lif_step``
@@ -52,7 +53,11 @@ script then exits non-zero and never prints its result line):
 7. Time each kernel, its plain version and one library call at the main
    path's shapes on the main path's own traffic (the backward kernels on
    the operands of phase 5's middle time step), next to the least time
-   the card could take for the same work.
+   the card could take for the same work.  The dense kernels and
+   ``torch.matmul`` also get their device time from the profiler
+   (``kernel_device_ms``, ``library_device_ms``): one call between two
+   events encloses the wrapper's host time before the launch when that is
+   longer than the kernel.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -194,6 +199,29 @@ def median_ms(torch, fn, reps=25, warmup=3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
+def device_ms(torch, fn, calls=20, tries=3):
+    """Device time a call of ``fn`` takes: the profiler's sum of the CUDA
+    kernels ``calls`` calls launch, over ``calls``, after one warm-up.
+    Unlike ``median_ms`` it leaves out the host time before each launch,
+    which one timed call encloses whenever the host is slower than the
+    device.  The profiler now and then records no kernel at all; then it
+    tries again, and after ``tries`` empty traces returns None (not
+    measured), never 0."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / calls / 1e3
+    return None
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
@@ -313,11 +341,13 @@ def main() -> int:
         report["build_seconds"] = time.perf_counter() - t0
         log(f"built {sorted(libs)} in {report['build_seconds']:.1f} s "
             f"into {build.build_dir().relative_to(ROOT)}")
+        report["ptxas"] = {}
         for name in sorted(libs):
             for line in (libs[name].parent / f"{name}.log").read_text() \
                     .splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  {name}: {line.strip()}")
+                    report["ptxas"].setdefault(name, []).append(line.strip())
 
     # ---- 2. kernels against their plain versions -------------------------
     errs = {name: 0.0 for name in LINES}
@@ -333,9 +363,13 @@ def main() -> int:
 
     net5_dense = [(BATCH, 32 * 32 * 32, 512), (BATCH, 512, 256),
                   (BATCH, 256, 11)]
+    # a ragged large K: the split path with a short last slab, K and N not
+    # whole float4s (the kernels' cp.async path) and a second row tile
+    ragged_split = (70, 32 * 32 * 32 + 37, 130)
     with Phase("kernels vs plain versions"):
         n_cases = 0
-        for m, k, n in [(70, 1000, 130), (5, 33, 7)] + net5_dense:
+        for m, k, n in [(70, 1000, 130), (5, 33, 7),
+                        ragged_split] + net5_dense:
             w = on_grid(torch.randn(k, n, generator=gen, device=dev)
                         / math.sqrt(k) * 2)
             b = on_grid(torch.randn(n, generator=gen, device=dev) * 0.1)
@@ -376,6 +410,22 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"{n_cases} cases equal to the plain versions on 2^-"
             f"{GRID_BITS}-grid weights; max |diff| {errs}")
+        # the split kernels add their partials in a fixed order: two calls
+        # on normal weights give the same bytes
+        for m, k, n in (net5_dense[0], ragged_split):
+            s = spikes((m, k), 0.2)
+            w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
+            b = torch.randn(n, generator=gen, device=dev) * 0.1
+            u0 = torch.randn(m, n, generator=gen, device=dev)
+            s0 = spikes((m, n), 0.3)
+            kw = dict(beta=0.95, threshold=1.0)
+            if not (torch.equal(ops.spike_gemm(s, w), ops.spike_gemm(s, w))
+                    and all(torch.equal(a, c) for a, c in zip(
+                        ops.spike_gemm_lif_step(s, w, b, u0, s0, **kw),
+                        ops.spike_gemm_lif_step(s, w, b, u0, s0, **kw)))):
+                raise AssertionError(f"two calls at {(m, k, n)} differ")
+            log(f"  {(m, k, n)}, split {gemm_kernel.split_plan(m, n, k)}: "
+                f"two calls give the same bytes (both kernels)")
         # normal weights: the sums are rounded in another order, so the
         # stated tolerance is relative to the largest sum of |s*w|, and
         # spikes must agree wherever u is farther than that from threshold
@@ -1128,22 +1178,30 @@ def main() -> int:
             s0 = torch.zeros(m, n, device=dev)
             s_read, _, w_rows = gated_counts(torch, flags, m, k)
             gemm_bytes = 4 * (s_read + w_rows * n + m * n + flags.numel())
+            splits = gemm_kernel.split_plan(m, n, k)[0]
             row = {"kernel": "spike_gemm", "layer": name,
-                   "shape": [m, k, n], "input_rate": nnz / s.numel(),
+                   "shape": [m, k, n], "splits": splits,
+                   "input_rate": nnz / s.numel(),
                    "skip_fraction": ops.skip_fraction(s),
                    "ms": median_ms(torch, lambda: ops.spike_gemm(s, w)),
                    "kernel_ms": median_ms(torch, lambda: gemm_kernel
                                           .spike_gemm_cuda(s, w, flags)),
                    "plain_ms": median_ms(torch,
                                          lambda: ref.spike_gemm_ref(s, w)),
-                   "library_ms": median_ms(torch, lambda: torch.matmul(s, w))}
+                   "library_ms": median_ms(torch, lambda: torch.matmul(s, w)),
+                   "kernel_device_ms": device_ms(torch, lambda: gemm_kernel
+                                                 .spike_gemm_cuda(s, w,
+                                                                  flags)),
+                   "library_device_ms": device_ms(
+                       torch, lambda: torch.matmul(s, w))}
             row["bound_ms"], row["bound_by"] = bound_ms(gemm_bytes,
                                                         2 * nnz * n)
             per_layer.append(row)
             lif = spec.lif
             fused_bytes = gemm_bytes + 4 * (n + 3 * m * n)
             row = {"kernel": "spike_gemm_lif", "layer": name,
-                   "shape": [m, k, n], "input_rate": nnz / s.numel(),
+                   "shape": [m, k, n], "splits": splits,
+                   "input_rate": nnz / s.numel(),
                    "skip_fraction": ops.skip_fraction(s),
                    "ms": median_ms(torch, lambda: ops.spike_gemm_lif_step(
                        s, w, b, u0, s0, beta=lif.beta,
@@ -1157,7 +1215,13 @@ def main() -> int:
                                          .spike_gemm_lif_ref(
                                              s, w, b, u0, s0, beta=lif.beta,
                                              threshold=lif.threshold)),
-                   "library_ms": None}
+                   "library_ms": None,
+                   "kernel_device_ms": device_ms(torch, lambda: fused_kernel
+                                                 .spike_gemm_lif_cuda(
+                                                     s, w, b, u0, s0, flags,
+                                                     beta=lif.beta,
+                                                     threshold=lif.threshold)
+                                                 )}
             row["bound_ms"], row["bound_by"] = bound_ms(
                 fused_bytes, 2 * nnz * n + 5 * m * n)
             per_layer.append(row)

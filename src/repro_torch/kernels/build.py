@@ -26,6 +26,9 @@ import torch
 #: kernel.  Passed to nvcc as -DBM/-DBN/-DBK, and the occupancy flags are
 #: computed at (block_m, block_k).
 TILE = {"block_m": 32, "block_n": 64, "block_k": 32}
+#: Columns of N a block of the dense split kernels owns
+#: (``csrc/dense_split.cuh``); passed to nvcc as -DDENSE_COLS.
+DENSE_COLS = 256
 
 SOURCES = ("spike_gemm", "spike_gemm_fused", "spike_conv", "spike_gemm_bwd",
            "lif_step", "penc_compact")
@@ -36,7 +39,7 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               f"-DBM={TILE['block_m']}", f"-DBN={TILE['block_n']}",
-              f"-DBK={TILE['block_k']}")
+              f"-DBK={TILE['block_k']}", f"-DDENSE_COLS={DENSE_COLS}")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -1,5 +1,7 @@
-// Block-skip fp32 accumulate shared by the spike GEMM, the fused GEMM+LIF
-// step and the spike convolution.
+// Block-skip fp32 accumulate of the spike convolution (spike_conv.cu), the
+// only kernel that runs it now; spike_gemm_bwd.cu takes only its thread
+// layout and tile grid.  The dense spike GEMM and the fused GEMM+LIF step
+// have their own split-K accumulate in dense_split.cuh.
 //
 // One thread block owns one BM x BN output tile and walks the whole K
 // reduction itself, with the partial sums in registers: blocks run in no

@@ -1,48 +1,66 @@
-// Block-skip spike GEMM: out[M,N] = S[M,K] @ W[K,N] in fp32, skipping every
-// BM x BK tile of S whose occupancy flag is 0.
+// Spike GEMM: out[M,N] = S[M,K] @ W[K,N] in fp32, skipping every BM x BK
+// tile of S whose occupancy flag is 0 and, inside the tiles it reads, every
+// zero spike.
 //
 // Replaces src/repro/kernels/spike_gemm.py:spike_gemm_pallas
 // (_spike_gemm_kernel), the TPU kernel with a sequential K grid axis, a VMEM
 // accumulator and scalar-prefetched flags.
 //
-// What bounds it on the H100: on net-5's dense layers M is the batch (64
-// rows) and fc1 has K = 32,768, so the least work is streaming W (64 MiB
-// for fc1) once, about 20 us at 3.35 TB/s; the fp32 FMAs of the tiles that
-// hold spikes are fewer than that at 67 TFLOP/s.  This first design does
-// not reach that bound: a (64, 512) output is 16 tiles, so 16 of the 132
-// SMs each walk all 1,024 K-tiles in turn, with no loads in flight across
-// the barrier.  It does skip the loads of empty spike tiles, which is what
-// spiking traffic pays for.  Split-K or a persistent stream-K walk, and
-// wgmma on an exact split of the fp32 weights, are later work.
-#include "block_skip.cuh"
+// What bounds it on the H100 is streaming W once (64 MiB at net-5's fc1,
+// about 20 us at 3.35 TB/s); dense_split.cuh says how the design reaches
+// for that: K split across blocks so a (64, 512) output fills the card, a
+// producer warp that keeps tensor copies of W's slabs in flight, and
+// consumer warps whose ballots walk only the nonzero spikes.  Two kernels:
+// the split pass, which writes `out` itself when there is one split and
+// (splits, M, N) partial sums otherwise, and a reduction that adds the
+// splits in ascending order.  Both launch from spike_gemm_launch, so one
+// op call is one counted launch.
+#include "dense_split.cuh"
 
-__global__ void __launch_bounds__(kThreads)
-spike_gemm_kernel(const float* __restrict__ S, const float* __restrict__ W,
-                  const int* __restrict__ flags, float* __restrict__ out,
-                  int M, int N, int K) {
-  __shared__ TileSmem sm;
-  const int mt = blockIdx.x, nt = blockIdx.y;
-  float acc[kRm][kRn];
-  block_skip_accumulate(S, W, flags, M, N, K, mt, nt, sm, acc);
-  const int tx = threadIdx.x % kTx, ty = threadIdx.x / kTx;
-#pragma unroll
-  for (int i = 0; i < kRm; ++i) {
-    const int r = mt * BM + ty + kTy * i;
-#pragma unroll
-    for (int j = 0; j < kRn; ++j) {
-      const int c = nt * BN + tx + kTx * j;
-      if (r < M && c < N) out[(size_t)r * N + c] = acc[i][j];
-    }
-  }
+__global__ void __launch_bounds__(dense::kThreads, 1)
+spike_gemm_split_kernel(const float* __restrict__ S,
+                        const float* __restrict__ W,
+                        const __grid_constant__ dense::Maps maps,
+                        const int* __restrict__ flags, float* __restrict__ dst,
+                        int M, int N, int K, int slabs_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  dense::Smem& sm = *reinterpret_cast<dense::Smem*>(smem);
+  float4 acc[dense::kRowsPerWarp][dense::kQuads];
+  if (!dense::accumulate(S, W, maps, flags, M, N, K, slabs_per_split, sm,
+                         acc))
+    return;                             // the producer warp
+  dense::store(dst + (size_t)blockIdx.z * M * N, M, N, acc);
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+__global__ void __launch_bounds__(256)
+spike_gemm_reduce_kernel(const float* __restrict__ part,
+                         float* __restrict__ out, int splits, size_t mn) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < mn) out[i] = dense::sum_splits(part, splits, mn, i);
+}
+
+// `splits` ranges of `slabs_per_split` slabs of K (kernels/spike_gemm.py:
+// split_plan).  With one split the block writes `out` and `part` is unused;
+// otherwise `part` holds splits x M x N floats.  Launches on `stream` and
+// returns the first CUDA error (0 on success).
 extern "C" int spike_gemm_launch(const void* S, const void* W,
-                                 const void* flags, void* out, int M, int N,
-                                 int K, void* stream) {
+                                 const void* flags, void* part, void* out,
+                                 int M, int N, int K, int splits,
+                                 int slabs_per_split, void* stream) {
   if (M == 0 || N == 0) return (int)cudaSuccess;
-  spike_gemm_kernel<<<tile_grid(M, N), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)S, (const float*)W, (const int*)flags, (float*)out, M, N,
-      K);
+  cudaStream_t st = (cudaStream_t)stream;
+  dense::Maps maps;
+  cudaError_t err = dense::host_maps(&maps, S, W, M, N, K);
+  if (err == cudaSuccess) err = dense::allow_smem<spike_gemm_split_kernel>();
+  if (err != cudaSuccess) return (int)err;
+  spike_gemm_split_kernel<<<dense::grid(M, N, splits), dense::kThreads,
+                            dense::kSmemBytes, st>>>(
+      (const float*)S, (const float*)W, maps, (const int*)flags,
+      (float*)(splits == 1 ? out : part), M, N, K, slabs_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t mn = (size_t)M * N;
+  spike_gemm_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+      (const float*)part, (float*)out, splits, mn);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// Fused spike GEMM + LIF scan step: the block-skip accumulate of
-// spike_gemm.cu, then, while the accumulator is still in registers,
+// Fused spike GEMM + LIF scan step: the split-K, event-driven accumulate of
+// spike_gemm.cu (dense_split.cuh), then, on the sum of the splits,
 //   cur = acc + b
 //   subtract reset: u = ((beta * u_prev) + cur) - (thr * s_prev)
 //   zero reset:     u = ((beta * u_prev) * (1 - s_prev)) + cur
@@ -18,61 +18,163 @@
 // intrinsics are never contracted, so whenever the currents are equal this
 // kernel's (u, s) equal the plain version's on the card bit for bit.
 //
-// What bounds it on the H100: as spike_gemm.cu (streaming W once at
-// 3.35 TB/s); the epilogue adds 4 reads and 2 writes of (B, N) fp32, which
-// at net-5's B = 64 is under 1 MiB.  The same 16-of-132-SM occupancy limit
-// as spike_gemm.cu holds on fc1.
-#include "block_skip.cuh"
+// What bounds it on the H100: as spike_gemm.cu, streaming W once at
+// 3.35 TB/s; the epilogue adds 4 reads and 2 writes of (B, N) fp32, under
+// 1 MiB at net-5's B = 64.  With one split the split pass runs the epilogue
+// on its registers; with more, it writes partial sums and the reduction
+// kernel adds the splits in ascending order and runs the epilogue.  Both
+// launch from spike_gemm_lif_launch: one op call, one counted launch.
+#include "dense_split.cuh"
 
-__global__ void __launch_bounds__(kThreads)
-spike_gemm_lif_kernel(const float* __restrict__ S, const float* __restrict__ W,
-                      const int* __restrict__ flags,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ u_prev,
-                      const float* __restrict__ s_prev,
-                      float* __restrict__ u_out, float* __restrict__ s_out,
-                      int M, int N, int K, float beta, float thr,
-                      int subtract_reset) {
-  __shared__ TileSmem sm;
-  const int mt = blockIdx.x, nt = blockIdx.y;
-  float acc[kRm][kRn];
-  block_skip_accumulate(S, W, flags, M, N, K, mt, nt, sm, acc);
-  const int tx = threadIdx.x % kTx, ty = threadIdx.x / kTx;
+struct Lif {
+  const float* bias;
+  const float* u_prev;
+  const float* s_prev;
+  float* u_out;
+  float* s_out;
+  float beta, thr;
+  int subtract_reset;
+  int vec;                              // N whole float4s, bases aligned
+};
+
+__device__ __forceinline__ float lif_u(const Lif& p, float cur, float up,
+                                       float sp) {
+  if (p.subtract_reset)
+    return __fsub_rn(__fadd_rn(__fmul_rn(p.beta, up), cur),
+                     __fmul_rn(p.thr, sp));
+  return __fadd_rn(__fmul_rn(__fmul_rn(p.beta, up), __fsub_rn(1.0f, sp)),
+                   cur);
+}
+
+// The update of output idx (column c) from its sum.
+__device__ __forceinline__ void lif_update(const Lif& p, float acc, int c,
+                                           size_t idx) {
+  const float u = lif_u(p, __fadd_rn(acc, p.bias[c]), p.u_prev[idx],
+                        p.s_prev[idx]);
+  p.u_out[idx] = u;
+  p.s_out[idx] = u > p.thr ? 1.0f : 0.0f;
+}
+
+// The update of outputs (r, c .. c+3) from their sums: every operand read
+// before anything is written (the outputs may not alias the inputs, but
+// the compiler cannot know), a float4 at a time where p.vec allows.
+__device__ __forceinline__ void lif_update4(const Lif& p, const float4& acc,
+                                            int N, int r, int c) {
+  const size_t idx = (size_t)r * N + c;
+  float up[4], sp[4], b[4];
+  if (p.vec) {
+    const float4 u4 = *reinterpret_cast<const float4*>(p.u_prev + idx);
+    const float4 s4 = *reinterpret_cast<const float4*>(p.s_prev + idx);
+    const float4 b4 = *reinterpret_cast<const float4*>(p.bias + c);
 #pragma unroll
-  for (int i = 0; i < kRm; ++i) {
-    const int r = mt * BM + ty + kTy * i;
+    for (int j = 0; j < 4; ++j) {
+      up[j] = dense::lane_of(u4, j);
+      sp[j] = dense::lane_of(s4, j);
+      b[j] = dense::lane_of(b4, j);
+    }
+  } else {
 #pragma unroll
-    for (int j = 0; j < kRn; ++j) {
-      const int c = nt * BN + tx + kTx * j;
-      if (r >= M || c >= N) continue;
-      const size_t idx = (size_t)r * N + c;
-      const float cur = __fadd_rn(acc[i][j], bias[c]);
-      const float up = u_prev[idx], sp = s_prev[idx];
-      float u;
-      if (subtract_reset) {
-        u = __fsub_rn(__fadd_rn(__fmul_rn(beta, up), cur), __fmul_rn(thr, sp));
-      } else {
-        u = __fadd_rn(__fmul_rn(__fmul_rn(beta, up), __fsub_rn(1.0f, sp)),
-                      cur);
-      }
-      u_out[idx] = u;
-      s_out[idx] = u > thr ? 1.0f : 0.0f;
+    for (int j = 0; j < 4; ++j) {
+      const bool in = c + j < N;
+      up[j] = in ? p.u_prev[idx + j] : 0.0f;
+      sp[j] = in ? p.s_prev[idx + j] : 0.0f;
+      b[j] = in ? p.bias[c + j] : 0.0f;
+    }
+  }
+  float u[4], s[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    u[j] = lif_u(p, __fadd_rn(dense::lane_of(acc, j), b[j]), up[j], sp[j]);
+    s[j] = u[j] > p.thr ? 1.0f : 0.0f;
+  }
+  if (p.vec) {
+    *reinterpret_cast<float4*>(p.u_out + idx) =
+        make_float4(u[0], u[1], u[2], u[3]);
+    *reinterpret_cast<float4*>(p.s_out + idx) =
+        make_float4(s[0], s[1], s[2], s[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (c + j < N) {
+      p.u_out[idx + j] = u[j];
+      p.s_out[idx + j] = s[j];
     }
   }
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+__global__ void __launch_bounds__(dense::kThreads, 1)
+spike_gemm_lif_split_kernel(const float* __restrict__ S,
+                            const float* __restrict__ W,
+                            const __grid_constant__ dense::Maps maps,
+                            const int* __restrict__ flags,
+                            float* __restrict__ part, Lif lif, int M, int N,
+                            int K, int slabs_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  dense::Smem& sm = *reinterpret_cast<dense::Smem*>(smem);
+  float4 acc[dense::kRowsPerWarp][dense::kQuads];
+  if (!dense::accumulate(S, W, maps, flags, M, N, K, slabs_per_split, sm,
+                         acc))
+    return;                             // the producer warp
+  if (gridDim.z > 1) {
+    dense::store(part + (size_t)blockIdx.z * M * N, M, N, acc);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < dense::kRowsPerWarp; ++i) {
+    const int r = dense::row_of(i);
+    if (r >= M) continue;
+#pragma unroll
+    for (int q = 0; q < dense::kQuads; ++q) {
+      const int c = dense::col_of(q, 0);
+      if (c < N) lif_update4(lif, acc[i][q], N, r, c);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+spike_gemm_lif_reduce_kernel(const float* __restrict__ part, Lif lif,
+                             int splits, int N, size_t mn) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < mn)
+    lif_update(lif, dense::sum_splits(part, splits, mn, i), (int)(i % N), i);
+}
+
+static inline bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
+
+// `splits` ranges of `slabs_per_split` slabs of K (kernels/spike_gemm.py:
+// split_plan); with more than one, `part` holds splits x M x N floats.
+// Launches on `stream` and returns the first CUDA error (0 on success).
 extern "C" int spike_gemm_lif_launch(const void* S, const void* W,
                                      const void* flags, const void* bias,
                                      const void* u_prev, const void* s_prev,
-                                     void* u_out, void* s_out, int M, int N,
-                                     int K, float beta, float thr,
-                                     int subtract_reset, void* stream) {
+                                     void* part, void* u_out, void* s_out,
+                                     int M, int N, int K, int splits,
+                                     int slabs_per_split, float beta,
+                                     float thr, int subtract_reset,
+                                     void* stream) {
   if (M == 0 || N == 0) return (int)cudaSuccess;
-  spike_gemm_lif_kernel<<<tile_grid(M, N), kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      (const float*)S, (const float*)W, (const int*)flags,
-      (const float*)bias, (const float*)u_prev, (const float*)s_prev,
-      (float*)u_out, (float*)s_out, M, N, K, beta, thr, subtract_reset);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int vec = N % 4 == 0 && aligned16(bias) && aligned16(u_prev) &&
+                  aligned16(s_prev) && aligned16(u_out) && aligned16(s_out);
+  const Lif lif{(const float*)bias, (const float*)u_prev,
+                (const float*)s_prev, (float*)u_out, (float*)s_out, beta, thr,
+                subtract_reset, vec};
+  dense::Maps maps;
+  cudaError_t err = dense::host_maps(&maps, S, W, M, N, K);
+  if (err == cudaSuccess)
+    err = dense::allow_smem<spike_gemm_lif_split_kernel>();
+  if (err != cudaSuccess) return (int)err;
+  spike_gemm_lif_split_kernel<<<dense::grid(M, N, splits), dense::kThreads,
+                                dense::kSmemBytes, st>>>(
+      (const float*)S, (const float*)W, maps, (const int*)flags,
+      (float*)part, lif, M, N, K, slabs_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t mn = (size_t)M * N;
+  spike_gemm_lif_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+      (const float*)part, lif, splits, N, mn);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 """Fused spike GEMM + LIF scan step on the card
 (``csrc/spike_gemm_fused.cu``).
 
-``(u, s) = LIF(u_prev, s_prev, S @ W + b)`` in one launch: the block-skip
-accumulate of ``spike_gemm``, then the bias add and membrane update on the
-accumulator in registers, rounded exactly as ``ref.lif_step_ref`` rounds.
-``ops.spike_gemm_lif_step`` is the public entry point.
+``(u, s) = LIF(u_prev, s_prev, S @ W + b)`` in one launch: the split-K
+accumulate of ``spike_gemm`` on ``spike_gemm.split_plan``'s splits, then the
+bias add and membrane update on the sum of the splits, rounded exactly as
+``ref.lif_step_ref`` rounds.  ``ops.spike_gemm_lif_step`` is the public
+entry point.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.spike_gemm import split_plan, workspace
 
 #: Kernel launches since the last reset (``ops.reset_launch_counts``).
 launches = 0
@@ -24,7 +26,7 @@ RESETS = ("subtract", "zero")
 @functools.cache
 def _entry():
     fn = build.library("spike_gemm_fused").spike_gemm_lif_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -53,12 +55,16 @@ def spike_gemm_lif_cuda(spikes: torch.Tensor, weights: torch.Tensor,
     build.check_operand(s_prev, "s_prev", (m, n), dev)
     build.check_operand(flags, "flags", build.tile_grid(m, k), dev,
                         torch.int32)
+    splits, per = plan = split_plan(m, n, k)
+    part = workspace(m, n, plan, dev)
     u = torch.empty((m, n), dtype=torch.float32, device=dev)
     s = torch.empty((m, n), dtype=torch.float32, device=dev)
     err = _entry()(spikes.data_ptr(), weights.data_ptr(), flags.data_ptr(),
                    bias.data_ptr(), u_prev.data_ptr(), s_prev.data_ptr(),
-                   u.data_ptr(), s.data_ptr(), m, n, k, beta, threshold,
-                   int(reset_mechanism == "subtract"), build.stream_ptr(dev))
+                   0 if part is None else part.data_ptr(), u.data_ptr(),
+                   s.data_ptr(), m, n, k, splits, per,
+                   beta, threshold, int(reset_mechanism == "subtract"),
+                   build.stream_ptr(dev))
     build.check_launch(err, "spike_gemm_lif")
     launches += 1
     return u, s

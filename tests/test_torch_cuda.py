@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref, spike_gemm_bwd
+from repro_torch.kernels import ops, ref, spike_gemm_bwd, spike_gemm_fused
 
 # the package exports the functions spike_gemm, lif_step and penc_compact
 # (the JAX package's kernel API), so their binding modules are reached by
@@ -85,6 +85,60 @@ def test_cuda_spike_conv_equals_plain(cuda, stride, padding):
     got = ops.spike_conv(x, w, stride=stride, padding=padding)
     want = ref.spike_conv_ref(x, w, stride=stride, padding=padding)
     assert torch.equal(got, want)
+
+
+#: Shapes that take the split-K path: net-5's fc1, a ragged large K, and
+#: dvs-conv's first dense layer, whose workspace is small enough to come
+#: from the allocator's pool of the outputs.
+SPLIT_SHAPES = [(64, 32768, 512), (70, 32768 + 37, 130), (64, 1024, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 1.0])
+def test_cuda_split_path_equals_plain(cuda, m, k, n, density):
+    """The split-K kernels on grid operands: equal to the plain versions
+    bit for bit, the same bytes on a second call, one counted launch per
+    op call (the split pass and the reduction are one launch)."""
+    assert spike_gemm.split_plan(m, n, k)[0] > 1
+    rng = np.random.default_rng(16)
+    s = _t(_spikes(rng, (m, k), density)).to(cuda)
+    w = _t(_grid_weights(rng, (k, n), scale=0.05)).to(cuda)
+    b = _t(_grid_weights(rng, (n,))).to(cuda)
+    u0 = _t(_grid_weights(rng, (m, n), 1.0)).to(cuda)
+    s0 = _t(_spikes(rng, (m, n), 0.3)).to(cuda)
+    before = spike_gemm.launches
+    got = ops.spike_gemm(s, w)
+    torch.cuda.synchronize()
+    assert spike_gemm.launches == before + 1
+    assert torch.equal(got, ref.spike_gemm_ref(s, w))
+    assert torch.equal(got, ops.spike_gemm(s, w))
+    for reset in ("subtract", "zero"):
+        kw = dict(beta=0.95, threshold=1.0, reset_mechanism=reset)
+        before = spike_gemm_fused.launches
+        got = ops.spike_gemm_lif_step(s, w, b, u0, s0, **kw)
+        torch.cuda.synchronize()
+        assert spike_gemm_fused.launches == before + 1
+        want = ref.spike_gemm_lif_ref(s, w, b, u0, s0, **kw)
+        again = ops.spike_gemm_lif_step(s, w, b, u0, s0, **kw)
+        for g, wv, a in zip(got, want, again):
+            assert torch.equal(g, wv) and torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
+def test_cuda_split_path_on_normal_weights(cuda, m, k, n):
+    """Normal weights: the same bytes on every call (a fixed order of
+    sums, no atomics), and within 1e-5 of the largest sum of |s*w| of the
+    plain version, whose sums run in cuBLAS's order."""
+    rng = np.random.default_rng(17)
+    s = _t(_spikes(rng, (m, k), 0.2)).to(cuda)
+    w = rng.normal(size=(k, n)) / np.sqrt(k)
+    w = _t(w.astype(np.float32)).to(cuda)
+    got = ops.spike_gemm(s, w)
+    assert torch.equal(got, ops.spike_gemm(s, w))
+    norm = (s @ w.abs()).max().item()
+    assert (got - ref.spike_gemm_ref(s, w)).abs().max().item() < 1e-5 * norm
 
 
 def _cotangent(rng, shape, density=0.6):

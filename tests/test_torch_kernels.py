@@ -120,6 +120,94 @@ class TestSpikeGemm:
             _t(s), 8, 128) + 0.3
 
 
+#: (m, k, n): net-5's fc1-fc3, a ragged large K, the dense layers of the
+#: dvs-conv and mnist-mlp cells, degenerate shapes and a large M.
+SPLIT_SHAPES = [(64, 32768, 512), (64, 512, 256), (64, 256, 11),
+                (70, 32768 + 37, 130), (64, 1024, 64), (64, 784, 128),
+                (3, 1, 5), (5, 0, 7), (4096, 32768, 512)]
+
+
+def _split_ranges(k, plan):
+    """The [k0, k1) range of K each split of ``plan`` sums, in split order,
+    as the kernels cut it (dense_split.cuh: split z takes slabs z*per ..
+    z*per + per - 1 of the ceil(k / SLAB))."""
+    splits, per = plan
+    slab = spike_gemm.SLAB
+    return [(min(k, p * per * slab), min(k, (p + 1) * per * slab))
+            for p in range(splits)]
+
+
+class TestSplitPlan:
+    """The host side of the split-K dense kernels (spike_gemm.split_plan),
+    which both the spike GEMM and the fused GEMM+LIF wrappers use."""
+
+    @pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
+    def test_splits_cover_k_once_in_order_on_whole_slabs(self, m, k, n):
+        plan = spike_gemm.split_plan(m, n, k)
+        ranges = _split_ranges(k, plan)
+        assert len(ranges) == plan[0]
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        for k0, k1 in ranges:
+            assert k0 % spike_gemm.SLAB == 0
+            assert k1 == k or k1 % spike_gemm.SLAB == 0
+            assert k1 > k0 or k == 0            # no split is empty
+
+    def test_fc1_fills_a_wave(self):
+        splits, per = spike_gemm.split_plan(64, 512, 32768)
+        blocks = splits * (64 // spike_gemm.ROWS) * (512 // spike_gemm.COLS)
+        assert 120 <= blocks <= spike_gemm.WAVE
+        assert (splits, per) == (64, 16)
+
+    @pytest.mark.parametrize("k", [1, 31, 32])
+    @pytest.mark.parametrize("m,n", [(64, 512), (64, 11), (1, 1)])
+    def test_one_split_where_k_is_one_slab(self, m, n, k):
+        plan = spike_gemm.split_plan(m, n, k)
+        assert plan == (1, 1)
+        assert spike_gemm.workspace(m, n, plan, torch.device("cpu")) is None
+
+    @pytest.mark.parametrize("k", [64, 256, 500, 512, 784, 1024, 32768])
+    @pytest.mark.parametrize("m,n", [(64, 512), (64, 11), (1, 1), (200, 900)])
+    def test_fewest_slabs_a_split_that_fit_one_wave(self, m, n, k):
+        """Each split takes the fewest slabs for which the blocks fit in
+        one wave: one slab for net-5's fc2 and fc3, whose few slabs would
+        otherwise run one after another on a single block."""
+        splits, per = spike_gemm.split_plan(m, n, k)
+        slabs = -(-k // spike_gemm.SLAB)
+        tiles = -(-m // spike_gemm.ROWS) * -(-n // spike_gemm.COLS)
+        assert splits * tiles <= spike_gemm.WAVE
+        assert per == 1 or -(-slabs // (per - 1)) * tiles > spike_gemm.WAVE
+        if (m, n) == (64, 11) and k <= 1024:
+            assert (splits, per) == (slabs, 1)
+
+    @pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
+    def test_workspace_is_splits_by_m_by_n_fp32(self, m, k, n):
+        plan = spike_gemm.split_plan(m, n, k)
+        ws = spike_gemm.workspace(m, n, plan, torch.device("cpu"))
+        if plan[0] == 1:
+            assert ws is None
+        else:
+            assert ws.shape == (plan[0], m, n)
+            assert ws.dtype == torch.float32 and ws.is_contiguous()
+
+    @pytest.mark.parametrize("m,k,n", [(8, 32768 + 37, 16), (5, 1000, 7)])
+    def test_split_sums_in_split_order_equal_jax_on_grid(self, m, k, n):
+        """The kernel's association (ascending k within a split, splits
+        added in order) over the plan's ranges gives JAX's product exactly
+        on grid operands."""
+        rng = np.random.default_rng(4)
+        s = _spikes(rng, (m, k), 0.2)
+        w = _grid_weights(rng, (k, n), scale=0.05)
+        total = np.zeros((m, n), np.float32)
+        for k0, k1 in _split_ranges(
+                k, spike_gemm.split_plan(m, n, k)):
+            total = total + np.cumsum(
+                s[:, k0:k1, None] * w[None, k0:k1], axis=1,
+                dtype=np.float32)[:, -1]
+        want = jref.spike_gemm_ref(jnp.asarray(s), jnp.asarray(w))
+        np.testing.assert_array_equal(total, np.asarray(want))
+
+
 class TestSpikeConv:
     @pytest.mark.parametrize("stride", [1, 2])
     @pytest.mark.parametrize("padding", ["SAME", "VALID"])
