@@ -11,13 +11,17 @@ script then exits non-zero and never prints its result line):
    the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
 2. Hold each forward kernel against its plain PyTorch version on the card,
    at spike densities 0 .. 100%, on ragged shapes (one of them a large K
-   that takes the dense kernels' split path) and on net-5's own.  Weights
-   on the 2^-12 grid make every partial sum exact in fp32, so the results
-   must be equal; normal weights are checked to a stated tolerance, and
-   the dense kernels must give the same bytes on two calls.
-3. The same for the backward kernels (dW, dS), with cotangents on a
-   coarse grid; dW twice, for the same bytes; a cotangent tile of +x and
-   -x must not be skipped.  Then the kernel API's own kernels: ``lif_step``
+   that takes the dense kernels' split path; odd sizes, stride 2, VALID,
+   C = 3 and 33 and F = 33 for the conv) and on net-5's and dvs-conv's own,
+   and the conv on inputs other than spikes.  Weights on the 2^-12 grid
+   make every partial sum exact in fp32, so the results must be equal;
+   normal weights are checked to a stated tolerance, and the dense and conv
+   kernels must give the same bytes on two calls.
+3. The same for the backward kernels (the matrix dW and dS, and the conv
+   layers' dW on their input spikes), with cotangents on a coarse grid;
+   dW twice, for the same bytes; a cotangent tile of +x and -x must not be
+   skipped; one ``spike_conv_train`` forward and backward on the card equal
+   to the CPU's.  Then the kernel API's own kernels: ``lif_step``
    (fp32 and bf16, both resets) on ragged shapes and on net-5's membrane
    shapes, and ``penc_compact`` on ragged shapes at densities 0 .. 100%,
    each equal to its plain version bit for bit.
@@ -53,8 +57,9 @@ script then exits non-zero and never prints its result line):
 7. Time each kernel, its plain version and one library call at the main
    path's shapes on the main path's own traffic (the backward kernels on
    the operands of phase 5's middle time step), next to the least time
-   the card could take for the same work.  The dense kernels and
-   ``torch.matmul`` also get their device time from the profiler
+   the card could take for the same work.  The dense and conv kernels and
+   their library calls (``torch.matmul``, cuDNN's convolution and weight
+   gradient) also get their device time from the profiler
    (``kernel_device_ms``, ``library_device_ms``): one call between two
    events encloses the wrapper's host time before the launch when that is
    longer than the kernel.
@@ -126,6 +131,18 @@ LAUNCHED_ON = {"spike_gemm": "spike_gemm", "spike_gemm_lif": "spike_gemm_fused",
 API_EXPECTED = {"spike_gemm": 3, "spike_gemm_lif": 0, "spike_conv": 0,
                 "spike_gemm_dw": 0, "spike_gemm_ds": 0, "lif_step": 3,
                 "penc_compact": 5}
+# The conv layers held against their plain versions, ((B, H, W, C), F,
+# kernel, stride, padding): ragged ones (odd sizes, stride 2, VALID, C = 3,
+# 4 and 33, F = 5 and 33), dvs-conv's two convs and net-5's conv1 and conv2.
+CONV_CASES = ([((3, 17, 15, 4), 33, 3, st, pad) for st in (1, 2)
+               for pad in ("SAME", "VALID")]
+              + [((3, 17, 15, 3), 33, 3, 2, "SAME"),
+                 ((2, 9, 11, 33), 33, 3, 1, "VALID"),
+                 ((2, 9, 11, 33), 5, 2, 2, "SAME"),
+                 ((BATCH, 32, 32, 2), 8, 3, 1, "SAME"),
+                 ((BATCH, 16, 16, 8), 16, 3, 1, "SAME"),
+                 ((BATCH, 128, 128, 2), 32, 3, 1, "SAME"),
+                 ((BATCH, 64, 64, 32), 32, 3, 1, "SAME")])
 # The ECU's priority-encoder chunk (validate.penc_compress's default).
 PENC_CHUNK = 100
 BACKWARD = ("spike_gemm_dw", "spike_gemm_ds")
@@ -155,6 +172,13 @@ SOURCES = {"spike_gemm": "src/repro_torch/kernels/csrc/spike_gemm.cu",
            "spike_gemm_ds": "src/repro_torch/kernels/csrc/spike_gemm_bwd.cu",
            "lif_step": "src/repro_torch/kernels/csrc/lif_step.cu",
            "penc_compact": "src/repro_torch/kernels/csrc/penc_compact.cu"}
+# The headers each kernel's source includes from csrc/.
+HEADERS = {"spike_gemm": ["dense_split.cuh"],
+           "spike_gemm_lif": ["dense_split.cuh"],
+           "spike_conv": ["conv_halo.cuh"],
+           "spike_gemm_dw": ["block_skip.cuh", "conv_halo.cuh"],
+           "spike_gemm_ds": ["block_skip.cuh"],
+           "lif_step": [], "penc_compact": []}
 
 
 def log(*args):
@@ -252,21 +276,13 @@ def gated_counts(torch, flags, rows: int, cols: int
             float(((f.sum(0) > 0).double() * c).sum()))
 
 
-def conv_input_needed(torch, x, flags, kh: int, kw: int, stride: int,
-                      padding: str) -> float:
-    """Elements of the conv input ``x`` that feed a flagged tile of its
-    patch matrix: col2im of the tile mask, counted where it is > 0."""
-    from repro_torch.kernels.build import TILE
-    from repro_torch.kernels.spike_conv import conv_patches
-    bm, bk = TILE["block_m"], TILE["block_k"]
-    xx = torch.zeros_like(x, requires_grad=True)
-    with torch.enable_grad():
-        patches = conv_patches(xx, kh, kw, stride, padding)
-    rows, cols = patches.shape
-    mask = (flags.to(x.dtype).repeat_interleave(bm, 0)
-            .repeat_interleave(bk, 1)[:rows, :cols])
-    (hits,) = torch.autograd.grad(patches, xx, mask)
-    return float((hits > 0).sum())
+def conv_reach(torch, ref, x, k: int, stride: int, padding: str):
+    """Per output pixel of a k x k convolution of ``x``, the number of
+    input events (nonzero entries) in its receptive field: (B, OH, OW)."""
+    events = (x != 0).sum(-1, keepdim=True).to(torch.float32)
+    ones = torch.ones(k, k, 1, 1, device=x.device)
+    return ref.spike_conv_ref(events, ones, stride=stride,
+                              padding=padding)[..., 0]
 
 
 def dvs_cell_launches(wl, num_steps: int) -> dict:
@@ -390,23 +406,25 @@ def main() -> int:
                              s, w, b, u0, s0, beta=0.95, threshold=1.0,
                              reset_mechanism=reset), f"{what} {reset}")
                 n_cases += 3
-        conv_cases = [((3, 17, 15, 4), 33, st, pad) for st in (1, 2)
-                      for pad in ("SAME", "VALID")]
-        conv_cases += [((BATCH, 128, 128, 2), 32, 1, "SAME"),
-                       ((BATCH, 64, 64, 32), 32, 1, "SAME")]
-        for shape, feats, stride, padding in conv_cases:
+        for shape, feats, k, stride, padding in CONV_CASES:
             cin = shape[-1]
-            w = on_grid(torch.randn(3, 3, cin, feats, generator=gen,
-                                    device=dev) / math.sqrt(9 * cin) * 2)
+            w = on_grid(torch.randn(k, k, cin, feats, generator=gen,
+                                    device=dev) / math.sqrt(k * k * cin) * 2)
+            conv = dict(stride=stride, padding=padding)
+            what = f"x{shape} {k}x{k}x{feats} stride {stride} {padding}"
             for d in DENSITIES:
                 x = spikes(shape, d)
-                hold("spike_conv",
-                     [ops.spike_conv(x, w, stride=stride, padding=padding)],
-                     [ref.spike_conv_ref(x, w, stride=stride,
-                                         padding=padding)],
-                     f"x{shape} F={feats} stride {stride} {padding} "
-                     f"density {d}")
+                want = ref.spike_conv_ref(x, w, **conv)
+                hold("spike_conv", [ops.spike_conv(x, w, **conv),
+                                    ops.spike_conv(x, w, **conv)],
+                     [want, want], f"{what} density {d} (twice)")
                 n_cases += 1
+            # inputs other than spikes: each event's own value (2^-2 grid)
+            x = spikes(shape, 0.3) * torch.randint(
+                1, 9, shape, generator=gen, device=dev) / 4
+            hold("spike_conv", [ops.spike_conv(x, w, **conv)],
+                 [ref.spike_conv_ref(x, w, **conv)], f"{what} values")
+            n_cases += 1
         torch.cuda.synchronize()
         log(f"{n_cases} cases equal to the plain versions on 2^-"
             f"{GRID_BITS}-grid weights; max |diff| {errs}")
@@ -482,8 +500,10 @@ def main() -> int:
                 "fc3": (BATCH, 256, 11)}
     with Phase("backward kernels vs plain versions"):
         n_cases = 0
-        for m, k, n in [(70, 1000, 130), (5, 33, 7), (4100, 18, 32)] + list(
-                net5_bwd.values()):
+        # the matrix kernels: dW of the dense layers, dS of every layer but
+        # conv1 (conv2's in patch space)
+        for m, k, n in [(70, 1000, 130), (5, 33, 7), (4100, 18, 32)] + [
+                net5_bwd[layer] for layer in ("conv2", "fc1", "fc2", "fc3")]:
             w = on_grid(torch.randn(k, n, generator=gen, device=dev)
                         / math.sqrt(k) * 2)
             for d in DENSITIES:
@@ -500,10 +520,54 @@ def main() -> int:
                 hold("spike_gemm_ds", [ops.spike_gemm_bwd_ds(g, w)],
                      [ref.spike_gemm_ds_ref(g, w)], what)
                 n_cases += 2
+        # the conv layers' dW, on their input spikes
+        for shape, feats, k, stride, padding in CONV_CASES:
+            conv = dict(stride=stride, padding=padding)
+            for d in DENSITIES + ("values",):
+                x = spikes(shape, 0.3 if d == "values" else d)
+                if d == "values":
+                    x = x * torch.randint(1, 9, shape, generator=gen,
+                                          device=dev) / 4
+                oh, ow = ref.spike_conv_ref(
+                    x[..., :1], torch.zeros(k, k, 1, 1, device=dev),
+                    **conv).shape[1:3]
+                g = cotangent((shape[0], oh, ow, feats),
+                              0.3 if d == "values" else d)
+                if not float(ref.spike_conv_dw_ref(
+                        x.abs(), g.abs(), k, k, **conv).max()) < 2.0 ** 22:
+                    raise AssertionError("operands break the exact-sum bound")
+                dw = ops.spike_conv_bwd_dw(x, g, kernel_size=(k, k), **conv)
+                want = ref.spike_conv_dw_ref(x, g, k, k, **conv)
+                hold("spike_gemm_dw",
+                     [dw, ops.spike_conv_bwd_dw(x, g, kernel_size=(k, k),
+                                                **conv)], [want, want],
+                     f"conv dW x{shape} {k}x{k}x{feats} stride {stride} "
+                     f"{padding} density {d} (twice)")
+                n_cases += 1
         torch.cuda.synchronize()
         log(f"{n_cases} cases equal to the plain versions on grid operands "
             f"(dW twice, the same bytes both times); max |diff| "
             f"{ {k: errs[k] for k in BACKWARD} }")
+        # one forward and backward of the conv's autograd Function on the
+        # card and on the CPU, on grid operands
+        for shape, feats, k, stride, padding in CONV_CASES[:5]:
+            x = spikes(shape, 0.2)
+            w = on_grid(torch.randn(k, k, shape[-1], feats, generator=gen,
+                                    device=dev))
+            out = ref.spike_conv_ref(x, w, stride=stride, padding=padding)
+            g = cotangent(tuple(out.shape), 0.6)
+            steps = []
+            for where in (dev, torch.device("cpu")):
+                xs, ws = (t.to(where).requires_grad_() for t in (x, w))
+                o = ops.spike_conv_train(xs, ws, stride=stride,
+                                         padding=padding)
+                steps.append([t.cpu() for t in (o, *torch.autograd.grad(
+                    o, (xs, ws), g.to(where)))])
+            if not all(torch.equal(a, b) for a, b in zip(*steps)):
+                raise AssertionError(f"spike_conv_train on the card differs "
+                                     f"from the CPU's at x{shape}")
+        log("  spike_conv_train's output, dS and dW on the card equal the "
+            "CPU's on 5 ragged layers")
         g = torch.zeros(40, 64, device=dev)
         g[3, 5], g[7, 9] = 0.75, -0.75          # one tile, its sum is zero
         if ops.cotangent_block_flags(g).tolist() != [[1, 0], [0, 0]] or \
@@ -513,22 +577,37 @@ def main() -> int:
             raise AssertionError("dS skipped a tile whose entries cancel")
         log("  a cotangent tile of +0.75 and -0.75 is flagged and "
             "accumulated")
-        for layer in ("conv1", "conv2", "fc1"):
+        # normal cotangents: the same bytes on two calls, and within the
+        # stated tolerance of the plain versions
+        for layer, shape in (("conv1", (BATCH, 128, 128, 2)),
+                             ("conv2", (BATCH, 64, 64, 32))):
+            x = spikes(shape, 0.1)
+            g = torch.randn(shape[:3] + (32,), generator=gen, device=dev)
+            dw = ops.spike_conv_bwd_dw(x, g, kernel_size=(3, 3))
+            if not torch.equal(dw, ops.spike_conv_bwd_dw(
+                    x, g, kernel_size=(3, 3))):
+                raise AssertionError(f"dW differs between two runs ({layer})")
+            hold_close("spike_gemm_dw", dw, ref.spike_conv_dw_ref(x, g, 3, 3),
+                       ref.spike_conv_dw_ref(x, g.abs(), 3, 3).max().item(),
+                       f"{layer} x{shape}")
+        for layer in ("conv2", "fc1"):
             m, k, n = net5_bwd[layer]
             s = spikes((m, k), 0.1)
             g = torch.randn(m, n, generator=gen, device=dev)
             w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
-            dw = ops.spike_gemm_bwd_dw(s, g)
-            if not torch.equal(dw, ops.spike_gemm_bwd_dw(s, g)):
-                raise AssertionError(f"dW differs between two runs ({layer})")
-            hold_close("spike_gemm_dw", dw, ref.spike_gemm_dw_ref(s, g),
-                       (s.T @ g.abs()).max().item(), f"{layer} {(m, k, n)}")
-            if layer != "conv1":
-                hold_close("spike_gemm_ds", ops.spike_gemm_bwd_ds(g, w),
-                           ref.spike_gemm_ds_ref(g, w),
-                           (g.abs() @ w.abs().T).max().item(),
+            if layer == "fc1":
+                dw = ops.spike_gemm_bwd_dw(s, g)
+                if not torch.equal(dw, ops.spike_gemm_bwd_dw(s, g)):
+                    raise AssertionError(f"dW differs between two runs "
+                                         f"({layer})")
+                hold_close("spike_gemm_dw", dw, ref.spike_gemm_dw_ref(s, g),
+                           (s.T @ g.abs()).max().item(),
                            f"{layer} {(m, k, n)}")
-        del s, g, w, dw
+            hold_close("spike_gemm_ds", ops.spike_gemm_bwd_ds(g, w),
+                       ref.spike_gemm_ds_ref(g, w),
+                       (g.abs() @ w.abs().T).max().item(),
+                       f"{layer} {(m, k, n)}")
+        del s, g, w, dw, x
         report["normal_weights_rel_err"] = normal
 
     # ---- 3b. the kernel API's lif_step and penc_compact ------------------
@@ -634,17 +713,22 @@ def main() -> int:
             for name, spec, train in zip(names, specs, trains):
                 rate = float(train.mean())
                 if isinstance(spec, snn.Conv):
-                    skips = [ops.skip_fraction(conv_kernel.conv_patches(
-                        train[t], spec.kernel, spec.kernel, spec.stride,
-                        spec.padding)) for t in range(NUM_STEPS)]
+                    # the share of output pixels no event reaches: the
+                    # conv kernels store zeros there and read no g row
+                    skips = [float((conv_reach(
+                        torch, ref, train[t], spec.kernel, spec.stride,
+                        spec.padding) == 0).double().mean())
+                        for t in range(NUM_STEPS)]
+                    what = "output pixels no event reaches"
                 else:
                     skips = [ops.skip_fraction(train[t].reshape(BATCH, -1))
                              for t in range(NUM_STEPS)]
+                    what = (f"skip fraction at {build.TILE['block_m']}x"
+                            f"{build.TILE['block_k']} tiles")
                 layer_rates[name] = {"input_rate": rate,
                                      "skip_fraction": statistics.fmean(skips)}
-                log(f"  {name} input: firing rate {rate:.4f}, skip fraction "
-                    f"at {build.TILE['block_m']}x{build.TILE['block_k']} "
-                    f"tiles {statistics.fmean(skips):.4f}")
+                log(f"  {name} input: firing rate {rate:.4f}, {what} "
+                    f"{statistics.fmean(skips):.4f}")
                 if rate == 0.0:
                     raise AssertionError(f"{name}'s input train is empty: "
                                          f"the kernels would skip it all")
@@ -878,25 +962,29 @@ def main() -> int:
             key = (kind, tuple(a.shape), tuple(b.shape))
             calls[key] = calls.get(key, 0) + 1
             if calls[key] == NUM_STEPS - NUM_STEPS // 2:
-                bwd_probe[key] = (a.detach().clone(), b.detach().clone(),
-                                  {k: v.clone() for k, v in kw.items()})
+                bwd_probe[key] = (a.detach().clone(), b.detach().clone(), {
+                    k: v.clone() if torch.is_tensor(v) else v
+                    for k, v in kw.items()})
             return real(a, b, **kw)
         return wrapper
 
     with Phase("net-5 training step on every backend"):
         train_results, train_launches, train_report = {}, {}, {}
         for backend in EXPECTED:
-            real = (ops.spike_gemm_bwd_dw, ops.spike_gemm_bwd_ds)
+            real = (ops.spike_gemm_bwd_dw, ops.spike_gemm_bwd_ds,
+                    ops.spike_conv_bwd_dw)
             if backend == "spike_gemm_fused":
                 ops.spike_gemm_bwd_dw = capturing(real[0], "dw")
                 ops.spike_gemm_bwd_ds = capturing(real[1], "ds")
+                ops.spike_conv_bwd_dw = capturing(real[2], "conv dw")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
             try:
                 loss, grads, fwd_s, bwd_s = timed_step(params, backend)
             finally:
-                ops.spike_gemm_bwd_dw, ops.spike_gemm_bwd_ds = real
+                (ops.spike_gemm_bwd_dw, ops.spike_gemm_bwd_ds,
+                 ops.spike_conv_bwd_dw) = real
             train_launches[backend] = ops.launch_counts()
             peak = torch.cuda.max_memory_allocated()
             want = {name: NUM_STEPS * n
@@ -1225,39 +1313,85 @@ def main() -> int:
             row["bound_ms"], row["bound_by"] = bound_ms(
                 fused_bytes, 2 * nnz * n + 5 * m * n)
             per_layer.append(row)
+        # the convs: the kernel reads every input and W once and writes
+        # every output once; its operations are the events' (the nonzeros
+        # of the patch matrix, which is never built), 2 * F each
         for name in ("conv1", "conv2"):
             spec, p = layers[name]
             x, w = probe[name], p["w"]
-            patches = conv_kernel.conv_patches(x, 3, 3, 1, "SAME")
-            flags = ops.block_flags(patches)
-            w2 = w.reshape(-1, w.shape[-1]).contiguous()
             x_nchw = x.permute(0, 3, 1, 2)          # channels-last strides
             w_oihw = w.permute(3, 2, 0, 1).contiguous()
             bsz, h, wd, c = x.shape
             feats = w.shape[-1]
-            nnz = float(patches.sum())
+            reach = conv_reach(torch, ref, x, 3, 1, "SAME")
+            nnz = float(reach.sum())
             row = {"kernel": "spike_conv", "layer": name,
                    "shape": [bsz, h, wd, c, feats],
                    "input_rate": float(x.mean()),
-                   "skip_fraction": ops.skip_fraction(patches),
+                   "skip_fraction": float((reach == 0).double().mean()),
                    "ms": median_ms(torch, lambda: ops.spike_conv(x, w)),
                    "kernel_ms": median_ms(torch, lambda: conv_kernel
-                                          .spike_conv_cuda(patches, w2,
-                                                           flags)),
+                                          .spike_conv_cuda(x, w, 1, "SAME")),
                    "plain_ms": median_ms(torch,
                                          lambda: ref.spike_conv_ref(x, w)),
                    "library_ms": median_ms(torch, lambda: F.conv2d(
+                       x_nchw, w_oihw, padding=1)),
+                   "kernel_device_ms": device_ms(
+                       torch, lambda: conv_kernel.spike_conv_cuda(
+                           x, w, 1, "SAME")),
+                   "library_device_ms": device_ms(torch, lambda: F.conv2d(
                        x_nchw, w_oihw, padding=1))}
-            _, _, w_rows = gated_counts(torch, flags, *patches.shape)
-            x_read = conv_input_needed(torch, x, flags, 3, 3, 1, "SAME")
             row["bound_ms"], row["bound_by"] = bound_ms(
-                4 * (x_read + w_rows * feats + bsz * h * wd * feats
-                     + flags.numel()),
+                4 * (x.numel() + w.numel() + bsz * h * wd * feats),
                 2 * nnz * feats)
             per_layer.append(row)
         layer_of = {(m, k): name for name, (m, k, _) in net5_bwd.items()}
         for (kind, _, _), (a, b, kw) in sorted(bwd_probe.items()):
-            if kind == "dw":
+            if kind == "conv dw":
+                # dW reads the input spikes, the g rows an event reaches,
+                # and writes dW; the bound of the matrix dW over the patch
+                # matrix's flagged tiles is kept beside it (patch_bound_ms)
+                x, g = a, b
+                bsz, h, wd, c = x.shape
+                n = g.shape[-1]
+                reach = conv_reach(torch, ref, x, 3, 1, "SAME")
+                nnz = float(reach.sum())
+                x_nchw = x.permute(0, 3, 1, 2)
+                g_nchw = g.permute(0, 3, 1, 2)
+                w_shape = (n, c, 3, 3)
+                row = {"kernel": "spike_gemm_dw",
+                       "layer": layer_of[(bsz * h * wd, 9 * c)],
+                       "shape": [bsz, h, wd, c, n],
+                       "input_rate": float(x.mean()),
+                       "skip_fraction": float((reach == 0).double().mean()),
+                       "ms": median_ms(torch, lambda: ops.spike_conv_bwd_dw(
+                           x, g, **kw)),
+                       "kernel_ms": median_ms(torch, lambda: bwd_kernel
+                                              .spike_conv_dw_cuda(
+                                                  x, g, 3, 3, 1, "SAME")),
+                       "plain_ms": median_ms(torch, lambda: ref
+                                             .spike_conv_dw_ref(x, g, 3, 3)),
+                       "library_ms": median_ms(
+                           torch, lambda: torch.nn.grad.conv2d_weight(
+                               x_nchw, w_shape, g_nchw, padding=1)),
+                       "kernel_device_ms": device_ms(
+                           torch, lambda: bwd_kernel.spike_conv_dw_cuda(
+                               x, g, 3, 3, 1, "SAME")),
+                       "library_device_ms": device_ms(
+                           torch, lambda: torch.nn.grad.conv2d_weight(
+                               x_nchw, w_shape, g_nchw, padding=1))}
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    4 * (x.numel() + float((reach > 0).sum()) * n
+                         + 9 * c * n), 2 * nnz * n)
+                patches = conv_kernel.conv_patches(x, 3, 3, 1, "SAME")
+                flags = ops.block_flags(patches)
+                s_read, g_rows, _ = gated_counts(torch, flags,
+                                                 *patches.shape)
+                row["patch_bound_ms"] = bound_ms(
+                    4 * (s_read + g_rows * n + 9 * c * n + flags.numel()),
+                    2 * nnz * n)[0]
+                del patches, flags
+            elif kind == "dw":
                 s, g, flags = a, b, kw["flags"]
                 m, k = s.shape
                 n = g.shape[1]
@@ -1372,6 +1506,8 @@ def main() -> int:
         counted = train_launches if name in BACKWARD else launches
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
+            "headers": [f"src/repro_torch/kernels/csrc/{h}"
+                        for h in HEADERS[name]],
             "replaces": LINES[name],
             "launches": (api_launches[name] if name in API_ONLY
                          else counted[LAUNCHED_ON[name]][name]),

@@ -3,16 +3,21 @@ the device of the tensors, and the autograd Functions of the training path.
 
 A CPU tensor runs the plain PyTorch version in ``ref.py``; a CUDA tensor
 launches the hand-written kernel, or raises when the kernel cannot take it.
-Nothing falls back from one to the other.  The flags are computed here with
-a PyTorch reduction at the kernels' tile (``build.TILE``) and validated
-against the tile grid on both devices, so a caller can compute them once
-(``block_flags``) and pass them to the kernel and to ``skip_fraction``.
+Nothing falls back from one to the other.  The dense kernels' flags are
+computed here with a PyTorch reduction at the kernels' tile
+(``build.TILE``) and validated against the tile grid on both devices, so a
+caller can compute them once (``block_flags``) and pass them to the kernel
+and to ``skip_fraction``.  The conv kernels find their own events in the
+spikes and take no flags.
 
 ``spike_gemm_train``, ``spike_conv_train`` and ``spike_gemm_lif_step`` are
-differentiable: the forward's flags ride the saved tensors, and the backward
-runs the block-skip dW and dS (``spike_gemm_bwd_dw`` / ``_ds``), on the card
-as kernels and on the CPU as their plain versions.  dS runs only where
-``ctx.needs_input_grad`` asks for it (a net's input spikes need none).
+differentiable.  The dense Functions' forward flags ride the saved tensors
+and their backward runs the block-skip dW and dS (``spike_gemm_bwd_dw`` /
+``_ds``); the conv Function saves its input spikes and runs the conv dW
+(``spike_conv_bwd_dw``) and dS in patch space folded back by
+``conv_col2im``; all on the card as kernels and on the CPU as their plain
+versions.  dS runs only where ``ctx.needs_input_grad`` asks for it (a net's
+input spikes need none).
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from repro_torch.kernels import spike_gemm as gemm_kernel
 from repro_torch.kernels import spike_gemm_bwd as bwd_kernel
 from repro_torch.kernels import spike_gemm_fused as fused_kernel
 from repro_torch.kernels.build import TILE, tile_grid
-from repro_torch.kernels.spike_conv import conv_out_size, conv_patches
+from repro_torch.kernels.spike_conv import conv_col2im, conv_out_size
 
 #: Kernel name -> (its binding module, the name of its launch counter).
 KERNELS = {"spike_gemm": (gemm_kernel, "launches"),
@@ -139,62 +144,40 @@ def spike_gemm(spikes: torch.Tensor, weights: torch.Tensor, *,
 
 
 def _patch_shape(s_in: torch.Tensor, weights: torch.Tensor, stride: int,
-                 padding: str) -> tuple[int, int, int, int]:
-    """(rows, cols, OH, OW) of the im2col patch matrix of a convolution."""
+                 padding: str) -> tuple[int, int]:
+    """(rows, cols) of the im2col patch matrix of a convolution."""
     b, h, w, _ = s_in.shape
     kh, kw, cin, _ = weights.shape
     oh, _, _ = conv_out_size(h, kh, stride, padding)
     ow, _, _ = conv_out_size(w, kw, stride, padding)
-    return b * oh * ow, kh * kw * cin, oh, ow
-
-
-def _conv_lowered(s_in: torch.Tensor, weights: torch.Tensor, stride: int,
-                  padding: str, flags, accumulate
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The convolution as the card runs it: patch matrix, its flags, one
-    block-skip ``accumulate(patches, w2d, flags)``, reshape to NHWC.
-    Returns the output and the flags."""
-    kh, kw, cin, cout = weights.shape
-    _, _, oh, ow = _patch_shape(s_in, weights, stride, padding)
-    patches = conv_patches(s_in, kh, kw, stride, padding)
-    if flags is None:
-        flags = block_flags(patches)
-    out = accumulate(patches, weights.reshape(kh * kw * cin, cout)
-                     .contiguous(), flags.contiguous())
-    return out.reshape(s_in.shape[0], oh, ow, cout), flags
-
-
-def _spike_conv(s_in: torch.Tensor, weights: torch.Tensor, stride: int,
-                padding: str, flags) -> tuple[torch.Tensor, torch.Tensor]:
-    """The one forward of the block-skip convolution: (output, the patch
-    flags the kernel ran on).  On the CPU it runs the plain version and
-    returns the caller's flags, ``None`` when none were given."""
-    if weights.shape[2] != s_in.shape[-1]:
-        raise ValueError(f"weights expect {weights.shape[2]} input channels, "
-                         f"spikes have {s_in.shape[-1]}")
-    if flags is not None:
-        rows, cols, _, _ = _patch_shape(s_in, weights, stride, padding)
-        _check_flags(flags, tile_grid(rows, cols),
-                     f"the patch matrix {(rows, cols)}")
-    if _on_cuda(s_in):
-        return _conv_lowered(s_in, weights, stride, padding, flags,
-                             conv_kernel.spike_conv_cuda)
-    return (ref.spike_conv_ref(s_in, weights, stride=stride,
-                               padding=padding), flags)
+    return b * oh * ow, kh * kw * cin
 
 
 def spike_conv(s_in: torch.Tensor, weights: torch.Tensor, *,
                stride: int = 1, padding: str = "SAME",
                flags: torch.Tensor = None) -> torch.Tensor:
-    """Sparsity-aware NHWC x HWIO convolution with patch-tile skipping.
+    """Sparsity-aware NHWC x HWIO convolution.  Output (B, OH, OW, F).
 
-    ``flags``: optional precomputed occupancy of the PATCH matrix
-    (``block_flags(conv_patches(s_in, ...))``).  Output (B, OH, OW, F)."""
-    return _spike_conv(s_in, weights, stride, padding, flags)[0]
+    ``flags``: the JAX package's optional occupancy of the PATCH matrix
+    (``block_flags(conv_patches(s_in, ...))``), checked against its tile
+    grid and otherwise unused: the kernel finds its own events in
+    ``s_in``, and a CPU tensor runs the plain convolution."""
+    if weights.shape[2] != s_in.shape[-1]:
+        raise ValueError(f"weights expect {weights.shape[2]} input channels, "
+                         f"spikes have {s_in.shape[-1]}")
+    if flags is not None:
+        rows, cols = _patch_shape(s_in, weights, stride, padding)
+        _check_flags(flags, tile_grid(rows, cols),
+                     f"the patch matrix {(rows, cols)}")
+    if _on_cuda(s_in):
+        return conv_kernel.spike_conv_cuda(s_in.contiguous(),
+                                           weights.contiguous(), stride,
+                                           padding)
+    return ref.spike_conv_ref(s_in, weights, stride=stride, padding=padding)
 
 
 # ---------------------------------------------------------------------------
-# Block-skip backward (the two cotangent products of BPTT)
+# Backward (the two cotangent products of BPTT)
 # ---------------------------------------------------------------------------
 
 def spike_gemm_bwd_dw(spikes: torch.Tensor, g: torch.Tensor, *,
@@ -211,6 +194,21 @@ def spike_gemm_bwd_dw(spikes: torch.Tensor, g: torch.Tensor, *,
         return bwd_kernel.spike_gemm_dw_cuda(
             spikes.contiguous(), g.contiguous(), flags.contiguous())
     return ref.spike_gemm_dw_ref(spikes, g)
+
+
+def spike_conv_bwd_dw(s_in: torch.Tensor, g: torch.Tensor, *,
+                      kernel_size: tuple[int, int], stride: int = 1,
+                      padding: str = "SAME") -> torch.Tensor:
+    """dW (KH, KW, C, F) of ``spike_conv`` from its (B, H, W, C) input
+    spikes and (B, OH, OW, F) cotangent.  On the card the kernel walks the
+    input's events; no patch matrix is built."""
+    kh, kw = kernel_size
+    if _on_cuda(s_in):
+        return bwd_kernel.spike_conv_dw_cuda(s_in.contiguous(),
+                                             g.contiguous(), kh, kw, stride,
+                                             padding)
+    return ref.spike_conv_dw_ref(s_in, g, kh, kw, stride=stride,
+                                 padding=padding)
 
 
 def spike_gemm_bwd_ds(g: torch.Tensor, weights: torch.Tensor, *,
@@ -261,40 +259,36 @@ def spike_gemm_train(spikes: torch.Tensor,
 class _SpikeConvTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, s_in, weights, stride, padding):
-        out, flags = _spike_conv(s_in, weights, stride, padding, None)
-        # the flags ride the saved tensors (None on the CPU, where the plain
-        # dW needs none); the patch matrix does not: it is rebuilt from
-        # s_in, which is KH*KW times smaller
-        ctx.save_for_backward(s_in, weights, flags)
+        ctx.save_for_backward(s_in, weights)
         ctx.conv = (stride, padding)
-        return out
+        return spike_conv(s_in, weights, stride=stride, padding=padding)
 
     @staticmethod
     def backward(ctx, g):
-        s_in, weights, flags = ctx.saved_tensors
+        s_in, weights = ctx.saved_tensors
         stride, padding = ctx.conv
         kh, kw, cin, cout = weights.shape
         need_s, need_w = ctx.needs_input_grad[:2]
-        with torch.enable_grad():
-            x = s_in.detach().requires_grad_(need_s)
-            patches = conv_patches(x, kh, kw, stride, padding)
-        d_p, d_w = _gemm_cotangents(
-            (need_s, need_w), g.reshape(-1, cout), patches.detach(),
-            weights.reshape(kh * kw * cin, cout), flags)
-        d_s = None
+        g = g.contiguous()
+        d_s = d_w = None
         if need_s:
-            # col2im: the exact adjoint of conv_patches, by autograd
-            (d_s,) = torch.autograd.grad(patches, x, d_p)
+            # dS in patch space, then col2im: its adjoint, with no patch
+            # matrix of the input
+            d_p = spike_gemm_bwd_ds(g.reshape(-1, cout),
+                                    weights.reshape(kh * kw * cin, cout))
+            d_s = conv_col2im(d_p, tuple(s_in.shape), kh, kw, stride,
+                              padding)
         if need_w:
-            d_w = d_w.reshape(kh, kw, cin, cout)
+            d_w = spike_conv_bwd_dw(s_in, g, kernel_size=(kh, kw),
+                                    stride=stride, padding=padding)
         return d_s, d_w, None, None
 
 
 def spike_conv_train(s_in: torch.Tensor, weights: torch.Tensor, *,
                      stride: int = 1, padding: str = "SAME") -> torch.Tensor:
-    """Differentiable block-skip convolution: ``spike_conv``'s forward, then
-    dW on the forward's patch flags and dS on the patch matrix, folded back
-    to (B, H, W, C) by col2im."""
+    """Differentiable convolution: ``spike_conv``'s forward, then the conv
+    dW on the input spikes and dS on the cotangent of the patch matrix,
+    folded back to (B, H, W, C) by col2im."""
     return _SpikeConvTrain.apply(s_in, weights, int(stride), str(padding))
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.spike_conv import conv_out_size
+from repro_torch.kernels.spike_conv import conv_out_size, conv_patches
 
 
 def lif_step_ref(u_prev: torch.Tensor, s_prev: torch.Tensor,
@@ -115,6 +115,18 @@ def block_flags_any_ref(x: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
 def spike_gemm_dw_ref(spikes: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Dense ``dW = Sᵀ @ g`` in fp32: (M, K) spikes, (M, N) cotangent."""
     return spikes.to(torch.float32).T @ g.to(torch.float32)
+
+
+def spike_conv_dw_ref(s_in: torch.Tensor, g: torch.Tensor, kh: int, kw: int,
+                      *, stride: int = 1, padding: str = "SAME"
+                      ) -> torch.Tensor:
+    """dW (KH, KW, C, F) of the convolution from its (B, H, W, C) input and
+    (B, OH, OW, F) cotangent: the JAX package's formula, the patch matrix's
+    ``Pᵀ @ g`` in fp32."""
+    c, f = s_in.shape[-1], g.shape[-1]
+    patches = conv_patches(s_in.to(torch.float32), kh, kw, stride, padding)
+    return (patches.T @ g.reshape(-1, f).to(torch.float32)).reshape(
+        kh, kw, c, f)
 
 
 def spike_gemm_ds_ref(g: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

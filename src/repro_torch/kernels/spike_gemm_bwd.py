@@ -1,13 +1,17 @@
-"""Block-skip backward of the spike GEMM on the card
-(``csrc/spike_gemm_bwd.cu``).
+"""Backward of the spike layers on the card (``csrc/spike_gemm_bwd.cu``).
 
-``dW[K,N] = Sᵀ @ g`` gated by the FORWARD's flags of ``S`` (read with the
-reduction index first), and ``dS[M,K] = g @ Wᵀ`` gated by the any-nonzero
-flags of ``g`` (``ops.cotangent_block_flags``), both at ``build.TILE``.
-dW splits its reduction over M across blocks (``dw_splits``) and adds the
-partials in a fixed order, so its result does not change from run to run.
-``ops.spike_gemm_bwd_dw`` / ``ops.spike_gemm_bwd_ds`` are the public entry
-points and send CPU tensors to the plain versions in ``ref.py``.
+A Dense layer's ``dW[K,N] = Sᵀ @ g`` gated by the FORWARD's flags of ``S``
+(read with the reduction index first), and ``dS[M,K] = g @ Wᵀ`` gated by
+the any-nonzero flags of ``g`` (``ops.cotangent_block_flags``), both at
+``build.TILE``.  A Conv layer's dW (KH, KW, C, F) from its (B, H, W, C)
+input spikes and (B, OH, OW, F) cotangent, gathered by events from the
+spikes themselves (``spike_conv_dw_cuda``); its dS is the matrix dS in
+patch space.  Both dWs split their reduction across blocks (``dw_splits``,
+``conv_dw_plan``) and add the partials in a fixed order, so their result
+does not change from run to run; each call counts as one launch of
+``spike_gemm_dw``.  ``ops.spike_gemm_bwd_dw``, ``ops.spike_conv_bwd_dw``
+and ``ops.spike_gemm_bwd_ds`` are the public entry points and send CPU
+tensors to the plain versions in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, spike_conv
 
 #: Kernel launches since the last reset (``ops.reset_launch_counts``), one
 #: counter per kernel.
@@ -36,6 +40,25 @@ def dw_splits(m: int, k: int, n: int) -> int:
     n_tiles = -(-n // build.TILE["block_n"])
     want = -(-DW_BLOCKS // max(1, k_tiles * n_tiles))
     return max(1, min(m_tiles, want))
+
+
+#: The H100's SMs: a constant, not the card's own number, so that the
+#: order of dW's sums depends on the shapes alone.
+SMS = 132
+#: Warps of a conv dW block, at most (``csrc/spike_gemm_bwd.cu``).
+CONV_DW_MAX_WARPS = 16
+
+
+def conv_dw_plan(tiles: int, items: int, smem: int) -> tuple[int, int, int]:
+    """(warps a block, splits, tiles per split) of a conv layer's dW over
+    ``tiles`` output tiles: a warp per item, a tap and a word of 32
+    channels (4 to ``CONV_DW_MAX_WARPS``), and as many splits, none of them
+    empty, as blocks of ``smem`` bytes fit in one wave."""
+    warps = min(max(items, 4), CONV_DW_MAX_WARPS)
+    resident = max(1, min(2048 // (32 * warps),
+                          spike_conv.SM_SMEM // (smem + 1024)))
+    per = max(1, -(-tiles // (SMS * resident)))
+    return warps, -(-tiles // per), per
 
 
 @functools.cache
@@ -77,6 +100,49 @@ def spike_gemm_dw_cuda(spikes: torch.Tensor, g: torch.Tensor,
                       part.data_ptr(), out.data_ptr(), m, n, k, splits,
                       build.stream_ptr(dev))
     build.check_launch(err, "spike_gemm_dw")
+    dw_launches += 1
+    return out
+
+
+@functools.cache
+def _conv_dw_entry():
+    fn = build.library("spike_gemm_bwd").spike_conv_dw_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def spike_conv_dw_cuda(s_in: torch.Tensor, g: torch.Tensor, kh: int,
+                       kw: int, stride: int, padding: str) -> torch.Tensor:
+    """dW (KH, KW, C, F) of a convolution from its (B, H, W, C) fp32 input
+    spikes and (B, OH, OW, F) fp32 cotangent.  Launches on the current
+    stream; raises on any operand the kernel does not take."""
+    global dw_launches
+    dev = build.cuda_device(s_in, "spike_conv_dw")
+    if s_in.dim() != 4 or g.dim() != 4:
+        raise ValueError(f"spike_conv_dw takes (B, H, W, C) spikes and a "
+                         f"(B, OH, OW, F) cotangent; got "
+                         f"{tuple(s_in.shape)} and {tuple(g.shape)}")
+    b, h, w, c = s_in.shape
+    f = g.shape[-1]
+    geo = spike_conv.conv_geometry(s_in.shape, (kh, kw, c, f), stride,
+                                   padding, dw=True)
+    oh, ow, tr, tw = geo[4], geo[5], geo[12], geo[13]
+    build.check_operand(s_in, "s_in", (b, h, w, c), dev)
+    build.check_operand(g, "g", (b, oh, ow, f), dev)
+    warps, splits, per = conv_dw_plan(b * -(-oh // tr) * -(-ow // tw),
+                                      kh * kw * -(-c // 32), geo[-1])
+    out = torch.empty((kh, kw, c, f), dtype=torch.float32, device=dev)
+    if c == 0:
+        return out
+    part = (torch.empty((splits, kh * kw * c * f), dtype=torch.float32,
+                        device=dev) if splits > 1 else out)
+    err = _conv_dw_entry()(s_in.data_ptr(), g.data_ptr(), part.data_ptr(),
+                           out.data_ptr(), *geo[:-1], warps, splits, per,
+                           geo[-1],
+                           build.stream_ptr(dev))
+    build.check_launch(err, "spike_conv_dw")
     dw_launches += 1
     return out
 

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref, spike_gemm_bwd, spike_gemm_fused
+from repro_torch.kernels import (ops, ref, spike_conv, spike_gemm_bwd,
+                                 spike_gemm_fused)
 
 # the package exports the functions spike_gemm, lif_step and penc_compact
 # (the JAX package's kernel API), so their binding modules are reached by
@@ -85,6 +86,93 @@ def test_cuda_spike_conv_equals_plain(cuda, stride, padding):
     got = ops.spike_conv(x, w, stride=stride, padding=padding)
     want = ref.spike_conv_ref(x, w, stride=stride, padding=padding)
     assert torch.equal(got, want)
+
+
+#: (B, H, W, C, F, kernel, stride, padding): ragged layers (odd sizes,
+#: stride 2, VALID, C and F past one word of 32), the dvs-conv cell's two
+#: convs and net-5's conv1 and conv2.
+CONV_LAYERS = [(3, 17, 15, 3, 33, 3, 2, "SAME"),
+               (2, 9, 11, 33, 5, 3, 1, "VALID"),
+               (2, 9, 8, 4, 7, 2, 2, "VALID"),
+               (64, 32, 32, 2, 8, 3, 1, "SAME"),
+               (64, 16, 16, 8, 16, 3, 1, "SAME"),
+               (64, 128, 128, 2, 32, 3, 1, "SAME"),
+               (64, 64, 64, 32, 32, 3, 1, "SAME")]
+
+
+def _conv_operands(cuda, layer, density, seed):
+    """Spikes, grid weights and an integer cotangent in [-2, 2] (every sum
+    of dW is exact at net-5's 10^6 output pixels), made on the card."""
+    b, h, w, c, f, k, stride, padding = layer
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.rand((b, h, w, c), generator=gen, device=cuda)
+         < density).float()
+    wt = torch.randn((k, k, c, f), generator=gen, device=cuda) * 0.5
+    wt = torch.round(wt / GRID) * GRID
+    out = ref.spike_conv_ref(x, wt, stride=stride, padding=padding)
+    g = torch.randn(out.shape, generator=gen, device=cuda).round().clamp(-2, 2)
+    g = g * (torch.rand(out.shape, generator=gen, device=cuda) < 0.6)
+    return x, wt, g, dict(stride=stride, padding=padding), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", CONV_LAYERS)
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 1.0])
+def test_cuda_conv_kernels_equal_plain(cuda, layer, density):
+    """The conv and the conv dW on the spikes, on grid operands: equal to
+    the plain versions bit for bit, the same bytes on a second call, one
+    counted launch per op call (dW's split pass and reduction are one)."""
+    x, w, g, conv, want = _conv_operands(cuda, layer, density, 18)
+    k = w.shape[0]
+    before = spike_conv.launches
+    got = ops.spike_conv(x, w, **conv)
+    torch.cuda.synchronize()
+    assert spike_conv.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, ops.spike_conv(x, w, **conv))
+    before = spike_gemm_bwd.dw_launches
+    dw = ops.spike_conv_bwd_dw(x, g, kernel_size=(k, k), **conv)
+    torch.cuda.synchronize()
+    assert spike_gemm_bwd.dw_launches == before + 1
+    assert torch.equal(dw, ref.spike_conv_dw_ref(x, g, k, k, **conv))
+    assert torch.equal(dw, ops.spike_conv_bwd_dw(x, g, kernel_size=(k, k),
+                                                 **conv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", CONV_LAYERS[:3] + CONV_LAYERS[-1:])
+def test_cuda_conv_kernels_take_any_values(cuda, layer):
+    """Inputs other than spikes: each nonzero is an event with its own
+    value (here on a 2^-2 grid, so every sum stays exact)."""
+    x, w, g, conv, _ = _conv_operands(cuda, layer, 0.3, 19)
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    x = x * torch.randint(1, 9, x.shape, generator=gen, device=cuda) / 4
+    k = w.shape[0]
+    assert torch.equal(ops.spike_conv(x, w, **conv),
+                       ref.spike_conv_ref(x, w, **conv))
+    assert torch.equal(ops.spike_conv_bwd_dw(x, g, kernel_size=(k, k), **conv),
+                       ref.spike_conv_dw_ref(x, g, k, k, **conv))
+
+
+@pytest.mark.cuda
+def test_cuda_conv_kernels_refuse_what_they_cannot_take(cuda):
+    x = torch.ones(2, 8, 8, 4, device=cuda)
+    w = torch.ones(3, 3, 4, 8, device=cuda)
+    g = torch.ones(2, 8, 8, 8, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        spike_conv.spike_conv_cuda(x.double(), w, 1, "SAME")
+    with pytest.raises(ValueError, match="contiguous"):
+        spike_conv.spike_conv_cuda(x.transpose(1, 2), w, 1, "SAME")
+    with pytest.raises(ValueError, match="shape"):
+        spike_conv.spike_conv_cuda(x, w[:, :, :3], 1, "SAME")
+    with pytest.raises(ValueError, match="shared memory"):
+        spike_conv.spike_conv_cuda(torch.ones(1, 8, 8, 256, device=cuda),
+                                   torch.ones(3, 3, 256, 4, device=cuda), 1,
+                                   "SAME")
+    with pytest.raises(ValueError, match="shape"):
+        spike_gemm_bwd.spike_conv_dw_cuda(x, g[:, :7], 3, 3, 1, "SAME")
+    with pytest.raises(TypeError, match="dtype"):
+        spike_gemm_bwd.spike_conv_dw_cuda(x, g.double(), 3, 3, 1, "SAME")
 
 
 #: Shapes that take the split-K path: net-5's fc1, a ragged large K, and

@@ -11,6 +11,7 @@ tests/test_torch_cuda.py.
 import importlib
 import stat
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -240,11 +241,34 @@ class TestSpikeConv:
                                           block_m=8))
         got = ops.spike_conv(_t(x), _t(w), stride=stride, padding=padding)
         np.testing.assert_array_equal(got.numpy(), want)
-        # the lowering the card runs (patches, flags, one accumulate)
-        lowered, _ = ops._conv_lowered(
-            _t(x), _t(w), stride, padding, None,
-            lambda p, w2, f: ref.spike_gemm_ref(p, w2))
-        np.testing.assert_array_equal(lowered.numpy(), want)
+        # the sum as the card's kernel takes it: each output adds its
+        # terms one at a time in fp32, in ascending (dy, dx, c)
+        patches = spike_conv.conv_patches(_t(x), 3, 3, stride,
+                                          padding).numpy()
+        terms = patches[:, :, None] * w.reshape(-1, w.shape[-1])[None]
+        walked = np.cumsum(terms, axis=1, dtype=np.float32)[:, -1]
+        np.testing.assert_array_equal(walked.reshape(want.shape), want)
+
+    @pytest.mark.parametrize("stride", [1, 2])
+    @pytest.mark.parametrize("padding", ["SAME", "VALID"])
+    @pytest.mark.parametrize("kernel", [2, 3])
+    @pytest.mark.parametrize("cin", [3, 33])
+    @pytest.mark.parametrize("cout", [5, 33])
+    def test_col2im_is_the_vjp_of_patches(self, stride, padding, kernel,
+                                          cin, cout):
+        """``conv_col2im`` against ``jax.vjp`` of the JAX package's
+        ``conv_patches``, exact on a patch-space cotangent on a grid (at
+        most KH*KW terms meet in one input element)."""
+        rng = np.random.default_rng(kernel * 100 + cin + cout)
+        x = _spikes(rng, (2, 9, 8, cin), 0.3)
+        patches, vjp = jax.vjp(lambda a: jconv.conv_patches(
+            a, kernel, kernel, stride, padding), jnp.asarray(x))
+        d_p = _grid_weights(rng, patches.shape)
+        (want,) = vjp(jnp.asarray(d_p))
+        got = spike_conv.conv_col2im(_t(d_p), x.shape, kernel, kernel,
+                                     stride, padding)
+        assert got.is_contiguous() and got.shape == x.shape
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     def test_rejects_mismatched_flags_and_channels(self):
         x, w = torch.zeros(1, 6, 6, 2), torch.zeros(3, 3, 2, 4)
@@ -252,6 +276,89 @@ class TestSpikeConv:
             ops.spike_conv(x, w, flags=torch.zeros(9, 9, dtype=torch.int32))
         with pytest.raises(ValueError, match="input channels"):
             ops.spike_conv(x, torch.zeros(3, 3, 5, 4))
+
+
+#: (B, H, W, C, F, kernel, stride, padding): net-5's conv1 and conv2, the
+#: dvs-conv cell's two convs, and ragged layers.
+CONV_LAYERS = [(64, 128, 128, 2, 32, 3, 1, "SAME"),
+               (64, 64, 64, 32, 32, 3, 1, "SAME"),
+               (64, 32, 32, 2, 8, 3, 1, "SAME"),
+               (64, 16, 16, 8, 16, 3, 1, "SAME"),
+               (3, 17, 15, 33, 33, 3, 2, "SAME"),
+               (2, 9, 7, 3, 5, 2, 2, "VALID"),
+               (1, 300, 5, 1, 1, 3, 1, "VALID")]
+
+
+def _tiled_pixels(geo):
+    """Output pixels (b, oh, ow) in the order the conv kernels' tiles walk
+    them: tiles in raster order, each tile's pixels row by row, pixels past
+    the output's edge left out (csrc/conv_halo.cuh:tile_at)."""
+    b, _, _, _, oh, ow, *_, tr, tw, _ = geo
+    for bi in range(b):
+        for t0 in range(0, oh, tr):
+            for u0 in range(0, ow, tw):
+                yield [(bi, t0 + r, u0 + c) for r in range(tr)
+                       for c in range(tw) if t0 + r < oh and u0 + c < ow]
+
+
+class TestConvGeometry:
+    """The host side of the conv kernels: the tile, the shared memory they
+    are launched with, and what they refuse."""
+
+    @pytest.mark.parametrize("layer", CONV_LAYERS)
+    @pytest.mark.parametrize("dw", [False, True])
+    def test_tiles_cover_every_output_pixel_once(self, layer, dw):
+        b, h, w, c, f, k, stride, padding = layer
+        geo = spike_conv.conv_geometry((b, h, w, c), (k, k, c, f), stride,
+                                       padding, dw=dw)
+        oh, ow, tr, tw = geo[4], geo[5], geo[12], geo[13]
+        assert tr * tw <= max(spike_conv.TILE_PIXELS[
+            "dw" if dw else "forward"])
+        if not dw and spike_conv.uses_strips(k, stride):
+            assert tw % spike_conv.STRIP == 0
+        seen = np.zeros((b, oh, ow), np.int64)
+        for tile in _tiled_pixels(geo):
+            for pix in tile:
+                seen[pix] += 1
+        assert (seen == 1).all()
+
+    def test_net5_tiles_and_shared_memory(self):
+        """The largest tile whose block leaves room for three forward or two
+        dW blocks in an SM.  Forward, on the strip kernel: four 128-pixel
+        rows of conv1 a tile, two 64-pixel rows of conv2, whose block holds
+        its 32 filters (36 KiB), a 4 x 66 halo and its masks; on the pixel
+        kernel (stride 2, no tile fits three) the smallest tile, with the
+        offsets of the 297 events in the halo and 8 warps' event lists.  dW:
+        four rows of conv1, two of conv2, and a g row per pixel."""
+        conv1 = spike_conv.conv_geometry((64, 128, 128, 2), (3, 3, 2, 32),
+                                         1, "SAME")
+        conv2 = spike_conv.conv_geometry((64, 64, 64, 32), (3, 3, 32, 32),
+                                         1, "SAME")
+        assert conv1[12:14] == (4, 128) and conv2[12:14] == (2, 64)
+        assert conv1[-1] == 4 * (9 * 2 * 32 + 6 * 130 * 3)
+        assert conv2[-1] == 4 * (9 * 32 * 32 + 4 * 66 * 33)
+        assert 3 * (conv2[-1] + 1024) <= spike_conv.SM_SMEM
+        ragged = spike_conv.conv_geometry((3, 17, 15, 33), (3, 3, 33, 33), 2,
+                                          "SAME")
+        assert ragged[12:14] == (8, 8) and ragged[-1] == 4 * (
+            9 * 33 * 32 + 17 * 17 * 35 + 9 * 300)
+        dw1 = spike_conv.conv_geometry((64, 128, 128, 2), (3, 3, 2, 32), 1,
+                                       "SAME", dw=True)
+        dw2 = spike_conv.conv_geometry((64, 64, 64, 32), (3, 3, 32, 32), 1,
+                                       "SAME", dw=True)
+        assert dw1[12:14] == (4, 128) and dw2[12:14] == (2, 64)
+        assert dw2[-1] == 4 * (9 * 32 * 33 + 128 * 32 + 4 * 66 * 33)
+        assert 2 * (dw2[-1] + 1024) <= spike_conv.SM_SMEM
+
+    @pytest.mark.parametrize("shapes,match", [
+        (((1, 8, 8, 512), (3, 3, 512, 4), 1, "SAME"), "shared memory"),
+        (((1, 8, 8, 2), (3, 3, 2, 4), 0, "SAME"), "stride"),
+        (((1, 2, 2, 2), (3, 3, 2, 4), 1, "VALID"), "no output"),
+        (((2 ** 17, 128, 128, 2), (3, 3, 2, 4), 1, "SAME"), "32 bits"),
+        (((1, 8, 8, 2), (3, 3, 2, 4), 1, "FULL"), "padding")])
+    def test_refuses_what_the_kernels_cannot_take(self, shapes, match):
+        with pytest.raises(ValueError, match=match):
+            spike_conv.conv_geometry(*shapes)
 
 
 class TestFusedGemmLif:
@@ -339,6 +446,8 @@ class TestDispatch:
                                 torch.zeros(8, 6), beta=0.9, threshold=1.0)
         ops.spike_gemm_bwd_dw(s, torch.ones(8, 6))
         ops.spike_gemm_bwd_ds(torch.ones(8, 6), w)
+        ops.spike_conv_bwd_dw(torch.ones(1, 5, 5, 2), torch.ones(1, 5, 5, 4),
+                              kernel_size=(3, 3))
         ops.lif_step(torch.zeros(8, 6), torch.zeros(8, 6), torch.ones(8, 6),
                      beta=0.9, threshold=1.0)
         ops.penc_compact(s, 16)
@@ -352,8 +461,10 @@ class TestDispatch:
             torch.ones(4, 4), torch.ones(4, 4),
             torch.ones(1, 1, dtype=torch.int32)),
         lambda: spike_conv.spike_conv_cuda(
-            torch.ones(4, 4), torch.ones(4, 4),
-            torch.ones(1, 1, dtype=torch.int32)),
+            torch.ones(1, 5, 5, 2), torch.ones(3, 3, 2, 4), 1, "SAME"),
+        lambda: spike_gemm_bwd.spike_conv_dw_cuda(
+            torch.ones(1, 5, 5, 2), torch.ones(1, 5, 5, 4), 3, 3, 1,
+            "SAME"),
         lambda: spike_gemm_fused.spike_gemm_lif_cuda(
             torch.ones(4, 4), torch.ones(4, 4), torch.ones(4),
             torch.ones(4, 4), torch.ones(4, 4),

@@ -21,6 +21,7 @@ from repro.core import lif as jlif
 from repro.core import snn as jsnn
 from repro.core import train_snn as jtrain
 from repro.kernels import ops as jops
+from repro.kernels import spike_conv as jconv
 from repro_torch import convert, optim
 from repro_torch.core import lif, snn, train_snn
 from repro_torch.kernels import ops
@@ -108,6 +109,75 @@ class TestPlainBackward:
         with pytest.raises(ValueError, match="tile grid"):
             ops.spike_gemm_bwd_ds(g, torch.ones(64, 8),
                                   gflags=torch.ones(1, 2, dtype=torch.int32))
+
+
+class TestPlainConvDw:
+    """The conv layer's dW, which the card computes from the input spikes
+    (``ops.spike_conv_bwd_dw``), against the JAX package's: the matrix dW
+    over its patch matrix."""
+
+    @pytest.mark.parametrize("stride", [1, 2])
+    @pytest.mark.parametrize("padding", ["SAME", "VALID"])
+    @pytest.mark.parametrize("kernel", [2, 3])
+    @pytest.mark.parametrize("cin", [3, 33])
+    @pytest.mark.parametrize("cout", [5, 33])
+    def test_exact_on_grid_operands(self, stride, padding, kernel, cin,
+                                    cout):
+        rng = np.random.default_rng(kernel * 100 + cin + cout + stride)
+        x = _spikes(rng, (2, 9, 8, cin), 0.3)
+        oh = jconv.conv_out_size(9, kernel, stride, padding)[0]
+        ow = jconv.conv_out_size(8, kernel, stride, padding)[0]
+        g = _cotangent(rng, (2, oh, ow, cout))
+        got = ops.spike_conv_bwd_dw(_t(x), _t(g), kernel_size=(kernel, kernel),
+                                    stride=stride, padding=padding)
+        patches = jconv.conv_patches(_j(x), kernel, kernel, stride, padding)
+        want = jops.spike_gemm_bwd_dw(patches, _j(g).reshape(-1, cout),
+                                      **BLOCKS)
+        assert got.shape == (kernel, kernel, cin, cout)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(want).reshape(got.shape))
+
+    @pytest.mark.parametrize("shape,kernel,stride,padding", [
+        ((3, 17, 15, 33), 3, 2, "SAME"), ((5, 16, 16, 8), 3, 1, "SAME"),
+        ((2, 9, 7, 3), 2, 2, "VALID")])
+    def test_split_order_equals_jax_on_grid(self, shape, kernel, stride,
+                                            padding):
+        """The card's association, emulated: each split adds its tiles'
+        pixels one at a time in fp32 (tiles of ``conv_tile``, splits of
+        ``conv_dw_plan``), and the splits are added in order.  On grid
+        operands it equals JAX's dW bit for bit, and it covers every output
+        pixel once."""
+        from repro_torch.kernels import spike_conv, spike_gemm_bwd
+        rng = np.random.default_rng(11)
+        cout = 6
+        x = _spikes(rng, shape, 0.3)
+        geo = spike_conv.conv_geometry(shape, (kernel, kernel, shape[-1],
+                                               cout), stride, padding,
+                                       dw=True)
+        b, oh, ow, tr, tw = geo[0], geo[4], geo[5], geo[12], geo[13]
+        g = _cotangent(rng, (b, oh, ow, cout))
+        patches = np.asarray(jconv.conv_patches(_j(x), kernel, kernel,
+                                                stride, padding))
+        tiles = [[(bi * oh + t0 + r) * ow + u0 + c for r in range(tr)
+                  for c in range(tw) if t0 + r < oh and u0 + c < ow]
+                 for bi in range(b) for t0 in range(0, oh, tr)
+                 for u0 in range(0, ow, tw)]
+        items = kernel * kernel * -(-shape[-1] // 32)
+        warps, splits, per = spike_gemm_bwd.conv_dw_plan(len(tiles), items,
+                                                         geo[-1])
+        assert (splits - 1) * per < len(tiles) <= splits * per
+        assert warps == min(max(4, items), 16)
+        total, seen = None, []
+        for z in range(splits):
+            rows = [p for tile in tiles[z * per:(z + 1) * per] for p in tile]
+            seen += rows
+            terms = patches[rows, :, None] * g.reshape(-1, cout)[rows, None]
+            part = np.cumsum(terms, axis=0, dtype=np.float32)[-1]
+            total = part if total is None else total + part
+        assert sorted(seen) == list(range(b * oh * ow))
+        want = jops.spike_gemm_bwd_dw(_j(patches), _j(g).reshape(-1, cout),
+                                      **BLOCKS)
+        np.testing.assert_array_equal(total, np.asarray(want))
 
 
 def _grads_of(fn, args, cots, wrt):
