@@ -17,14 +17,17 @@ script then exits non-zero and never prints its result line):
    make every partial sum exact in fp32, so the results must be equal;
    normal weights are checked to a stated tolerance, and the dense and conv
    kernels must give the same bytes on two calls.
-3. The same for the backward kernels (the matrix dW and dS, and the conv
-   layers' dW on their input spikes), with cotangents on a coarse grid;
-   dW twice, for the same bytes; a cotangent tile of +x and -x must not be
-   skipped; one ``spike_conv_train`` forward and backward on the card equal
-   to the CPU's.  Then the kernel API's own kernels: ``lif_step``
-   (fp32 and bf16, both resets) on ragged shapes and on net-5's membrane
-   shapes, and ``penc_compact`` on ragged shapes at densities 0 .. 100%,
-   each equal to its plain version bit for bit.
+3. The same for the backward kernels (the dense layers' dW and dS, the
+   conv layers' dW on their input spikes and their dS in conv form, at
+   every conv geometry of phase 2), with cotangents on a coarse grid, each
+   twice for the same bytes, and on spikes of other values; a cotangent
+   tile (dense dS) and a cotangent pixel (conv dS) of +x and -x must not be
+   skipped; on normal operands the conv dS must equal col2im of the card's
+   dense dS bit for bit; one ``spike_conv_train`` forward and backward on
+   the card equal to the CPU's.  Then the kernel API's own kernels:
+   ``lif_step`` (fp32 and bf16, both resets) on ragged shapes and on net-5's
+   membrane shapes, and ``penc_compact`` on ragged shapes at densities 0 ..
+   100%, each equal to its plain version bit for bit.
 4. The inference path: net-5 (DVSGesture 128x128x2 - 32C3 - P2 - 32C3 -
    P2 - 512 - 256 - 11, T = 124) with seeded random weights on 64
    synthetic event streams: ``evaluate``, ``dump_traces``,
@@ -41,7 +44,9 @@ script then exits non-zero and never prints its result line):
 5. The training path, net-5 at full width: one training step (forward and
    BPTT) on each backend from the same grid weights and batch, with the
    counters set to 0 before each backend and read after it (dW and dS
-   included); equal losses and gradients within a stated tolerance; a
+   included) and ``conv_col2im`` refused on CUDA tensors (a conv layer's
+   dS must not go through patch space); equal losses and gradients within
+   a stated tolerance; a
    profile of the step's forward and backward by kernel; three Adam steps
    on the default backend with their losses, times and peak memory.
 6. The whole cell: the registry's dvs-conv at T = 8 with its own recipe
@@ -58,11 +63,13 @@ script then exits non-zero and never prints its result line):
    path's shapes on the main path's own traffic (the backward kernels on
    the operands of phase 5's middle time step), next to the least time
    the card could take for the same work.  The dense and conv kernels and
-   their library calls (``torch.matmul``, cuDNN's convolution and weight
-   gradient) also get their device time from the profiler
-   (``kernel_device_ms``, ``library_device_ms``): one call between two
-   events encloses the wrapper's host time before the launch when that is
-   longer than the kernel.
+   their library calls (``torch.matmul``, cuDNN's convolution, weight
+   gradient and input gradient) also get their device time from the
+   profiler (``kernel_device_ms``, ``library_device_ms``): one call between
+   two events encloses the wrapper's host time before the launch when that
+   is longer than the kernel.  conv2's dS row times the layer's whole input
+   gradient (``ops.spike_conv_bwd_ds``) against cuDNN's
+   ``torch.nn.grad.conv2d_input``.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -176,8 +183,8 @@ SOURCES = {"spike_gemm": "src/repro_torch/kernels/csrc/spike_gemm.cu",
 HEADERS = {"spike_gemm": ["dense_split.cuh"],
            "spike_gemm_lif": ["dense_split.cuh"],
            "spike_conv": ["conv_halo.cuh"],
-           "spike_gemm_dw": ["block_skip.cuh", "conv_halo.cuh"],
-           "spike_gemm_ds": ["block_skip.cuh"],
+           "spike_gemm_dw": ["conv_halo.cuh"],
+           "spike_gemm_ds": ["conv_halo.cuh"],
            "lif_step": [], "penc_compact": []}
 
 
@@ -500,29 +507,36 @@ def main() -> int:
                 "fc3": (BATCH, 256, 11)}
     with Phase("backward kernels vs plain versions"):
         n_cases = 0
-        # the matrix kernels: dW of the dense layers, dS of every layer but
-        # conv1 (conv2's in patch space)
+        # the matrix kernels: dW and dS of the dense layers (a conv layer's
+        # dS runs in conv form, below)
         for m, k, n in [(70, 1000, 130), (5, 33, 7), (4100, 18, 32)] + [
-                net5_bwd[layer] for layer in ("conv2", "fc1", "fc2", "fc3")]:
+                net5_bwd[layer] for layer in ("fc1", "fc2", "fc3")]:
             w = on_grid(torch.randn(k, n, generator=gen, device=dev)
                         / math.sqrt(k) * 2)
-            for d in DENSITIES:
-                s, g = spikes((m, k), d), cotangent((m, n), d)
+            for d in DENSITIES + ("values",):
+                s = spikes((m, k), 0.3 if d == "values" else d)
+                if d == "values":
+                    s = s * torch.randint(1, 9, (m, k), generator=gen,
+                                          device=dev) / 4
+                g = cotangent((m, n), 0.3 if d == "values" else d)
                 bound_dw = float((s.T @ g.abs()).max())
                 bound_ds = float((g.abs() @ w.abs().T).max())
-                if not (bound_dw < 2.0 ** 24
+                if not (bound_dw < 2.0 ** 22
                         and bound_ds < 2.0 ** (24 - GRID_BITS)):
                     raise AssertionError("operands break the exact-sum bound")
                 what = f"S{(m, k)} g{(m, n)} W{(k, n)} density {d}"
                 dw = ops.spike_gemm_bwd_dw(s, g)
+                ds = ops.spike_gemm_bwd_ds(g, w)
                 hold("spike_gemm_dw", [dw, ops.spike_gemm_bwd_dw(s, g)],
-                     [ref.spike_gemm_dw_ref(s, g)] * 2, what)
-                hold("spike_gemm_ds", [ops.spike_gemm_bwd_ds(g, w)],
-                     [ref.spike_gemm_ds_ref(g, w)], what)
+                     [ref.spike_gemm_dw_ref(s, g)] * 2, what + " (twice)")
+                hold("spike_gemm_ds", [ds, ops.spike_gemm_bwd_ds(g, w)],
+                     [ref.spike_gemm_ds_ref(g, w)] * 2, what + " (twice)")
                 n_cases += 2
-        # the conv layers' dW, on their input spikes
+        # the conv layers' dW, on their input spikes, and dS, in conv form
         for shape, feats, k, stride, padding in CONV_CASES:
             conv = dict(stride=stride, padding=padding)
+            w = on_grid(torch.randn(k, k, shape[-1], feats, generator=gen,
+                                    device=dev) / math.sqrt(k * k) * 2)
             for d in DENSITIES + ("values",):
                 x = spikes(shape, 0.3 if d == "values" else d)
                 if d == "values":
@@ -533,20 +547,29 @@ def main() -> int:
                     **conv).shape[1:3]
                 g = cotangent((shape[0], oh, ow, feats),
                               0.3 if d == "values" else d)
-                if not float(ref.spike_conv_dw_ref(
-                        x.abs(), g.abs(), k, k, **conv).max()) < 2.0 ** 22:
+                if not (float(ref.spike_conv_dw_ref(
+                        x.abs(), g.abs(), k, k, **conv).max()) < 2.0 ** 22
+                        and float(ref.spike_conv_ds_ref(
+                            g.abs(), w.abs(), shape, **conv).max())
+                        < 2.0 ** (24 - GRID_BITS)):
                     raise AssertionError("operands break the exact-sum bound")
+                what = (f"x{shape} {k}x{k}x{feats} stride {stride} "
+                        f"{padding} density {d} (twice)")
                 dw = ops.spike_conv_bwd_dw(x, g, kernel_size=(k, k), **conv)
                 want = ref.spike_conv_dw_ref(x, g, k, k, **conv)
                 hold("spike_gemm_dw",
                      [dw, ops.spike_conv_bwd_dw(x, g, kernel_size=(k, k),
                                                 **conv)], [want, want],
-                     f"conv dW x{shape} {k}x{k}x{feats} stride {stride} "
-                     f"{padding} density {d} (twice)")
-                n_cases += 1
+                     f"conv dW {what}")
+                ds = ops.spike_conv_bwd_ds(g, w, shape, **conv)
+                want = ref.spike_conv_ds_ref(g, w, shape, **conv)
+                hold("spike_gemm_ds",
+                     [ds, ops.spike_conv_bwd_ds(g, w, shape, **conv)],
+                     [want, want], f"conv dS {what}")
+                n_cases += 2
         torch.cuda.synchronize()
         log(f"{n_cases} cases equal to the plain versions on grid operands "
-            f"(dW twice, the same bytes both times); max |diff| "
+            f"(each twice, the same bytes both times); max |diff| "
             f"{ {k: errs[k] for k in BACKWARD} }")
         # one forward and backward of the conv's autograd Function on the
         # card and on the CPU, on grid operands
@@ -575,10 +598,21 @@ def main() -> int:
                     g, torch.ones(6, 64, device=dev))[[3, 7]],
                     torch.tensor([[0.75] * 6, [-0.75] * 6], device=dev)):
             raise AssertionError("dS skipped a tile whose entries cancel")
-        log("  a cotangent tile of +0.75 and -0.75 is flagged and "
-            "accumulated")
+        g = torch.zeros(2, 8, 8, 32, device=dev)
+        g[1, 3, 4, :16], g[1, 3, 4, 16:] = 0.75, -0.75   # a row sums to 0
+        w = torch.ones(3, 3, 32, 32, device=dev)
+        w[..., 16:] = 2.0
+        ds = ops.spike_conv_bwd_ds(g, w, (2, 8, 8, 32))
+        if not (torch.equal(ds, ref.spike_conv_ds_ref(g, w, (2, 8, 8, 32)))
+                and int((ds != 0).sum()) == 9 * 32):
+            raise AssertionError("the conv dS skipped a cotangent pixel "
+                                 "whose entries cancel")
+        log("  a cotangent tile of +0.75 and -0.75 (dense dS) and a "
+            "cotangent pixel of +0.75 and -0.75 (conv dS) are not skipped")
         # normal cotangents: the same bytes on two calls, and within the
-        # stated tolerance of the plain versions
+        # stated tolerance of the plain versions; the conv dS equals col2im
+        # of the card's dense dS in patch space bit for bit (the same order
+        # of sums)
         for layer, shape in (("conv1", (BATCH, 128, 128, 2)),
                              ("conv2", (BATCH, 64, 64, 32))):
             x = spikes(shape, 0.1)
@@ -590,24 +624,34 @@ def main() -> int:
             hold_close("spike_gemm_dw", dw, ref.spike_conv_dw_ref(x, g, 3, 3),
                        ref.spike_conv_dw_ref(x, g.abs(), 3, 3).max().item(),
                        f"{layer} x{shape}")
-        for layer in ("conv2", "fc1"):
-            m, k, n = net5_bwd[layer]
-            s = spikes((m, k), 0.1)
-            g = torch.randn(m, n, generator=gen, device=dev)
-            w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
-            if layer == "fc1":
-                dw = ops.spike_gemm_bwd_dw(s, g)
-                if not torch.equal(dw, ops.spike_gemm_bwd_dw(s, g)):
-                    raise AssertionError(f"dW differs between two runs "
-                                         f"({layer})")
-                hold_close("spike_gemm_dw", dw, ref.spike_gemm_dw_ref(s, g),
-                           (s.T @ g.abs()).max().item(),
-                           f"{layer} {(m, k, n)}")
-            hold_close("spike_gemm_ds", ops.spike_gemm_bwd_ds(g, w),
-                       ref.spike_gemm_ds_ref(g, w),
-                       (g.abs() @ w.abs().T).max().item(),
-                       f"{layer} {(m, k, n)}")
-        del s, g, w, dw, x
+        w = torch.randn(3, 3, 32, 32, generator=gen, device=dev) / math.sqrt(
+            9 * 32)
+        ds = ops.spike_conv_bwd_ds(g, w, shape)
+        if not (torch.equal(ds, ops.spike_conv_bwd_ds(g, w, shape))
+                and torch.equal(ds, conv_kernel.conv_col2im(
+                    bwd_kernel.spike_gemm_ds_cuda(g.reshape(-1, 32),
+                                                  w.reshape(-1, 32)),
+                    shape, 3, 3, 1, "SAME"))):
+            raise AssertionError("the conv dS differs between two runs or "
+                                 "from col2im of the dense dS (conv2)")
+        hold_close("spike_gemm_ds", ds, ref.spike_conv_ds_ref(g, w, shape),
+                   ref.spike_conv_ds_ref(g.abs(), w.abs(), shape).max().item(),
+                   f"conv2 x{shape}, conv form")
+        m, k, n = net5_bwd["fc1"]
+        s = spikes((m, k), 0.1)
+        g = torch.randn(m, n, generator=gen, device=dev)
+        w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
+        dw, ds = ops.spike_gemm_bwd_dw(s, g), ops.spike_gemm_bwd_ds(g, w)
+        if not (torch.equal(dw, ops.spike_gemm_bwd_dw(s, g))
+                and torch.equal(ds, ops.spike_gemm_bwd_ds(g, w))):
+            raise AssertionError("fc1's dW or dS differs between two runs")
+        hold_close("spike_gemm_dw", dw, ref.spike_gemm_dw_ref(s, g),
+                   (s.T @ g.abs()).max().item(), f"fc1 {(m, k, n)}")
+        hold_close("spike_gemm_ds", ds, ref.spike_gemm_ds_ref(g, w),
+                   (g.abs() @ w.abs().T).max().item(), f"fc1 {(m, k, n)}")
+        log("  the conv dS equals col2im of the dense dS on normal operands; "
+            "dW and dS give the same bytes twice")
+        del s, g, w, dw, ds, x
         report["normal_weights_rel_err"] = normal
 
     # ---- 3b. the kernel API's lif_step and penc_compact ------------------
@@ -958,25 +1002,37 @@ def main() -> int:
     def capturing(real, kind):
         calls = {}
 
-        def wrapper(a, b, **kw):
+        def wrapper(a, b, *args, **kw):
             key = (kind, tuple(a.shape), tuple(b.shape))
             calls[key] = calls.get(key, 0) + 1
             if calls[key] == NUM_STEPS - NUM_STEPS // 2:
                 bwd_probe[key] = (a.detach().clone(), b.detach().clone(), {
                     k: v.clone() if torch.is_tensor(v) else v
-                    for k, v in kw.items()})
-            return real(a, b, **kw)
+                    for k, v in kw.items()}, args)
+            return real(a, b, *args, **kw)
         return wrapper
+
+    real_col2im = conv_kernel.conv_col2im
+
+    def col2im_off_the_card(d_patches, *args):
+        """``conv_col2im``, refused on a CUDA tensor: on the card a conv
+        layer's dS is written in (B, H, W, C) directly."""
+        if d_patches.is_cuda:
+            raise AssertionError("conv_col2im ran on the card: a conv dS "
+                                 "went through a patch-space cotangent")
+        return real_col2im(d_patches, *args)
 
     with Phase("net-5 training step on every backend"):
         train_results, train_launches, train_report = {}, {}, {}
         for backend in EXPECTED:
             real = (ops.spike_gemm_bwd_dw, ops.spike_gemm_bwd_ds,
-                    ops.spike_conv_bwd_dw)
+                    ops.spike_conv_bwd_dw, ops.spike_conv_bwd_ds)
             if backend == "spike_gemm_fused":
                 ops.spike_gemm_bwd_dw = capturing(real[0], "dw")
                 ops.spike_gemm_bwd_ds = capturing(real[1], "ds")
                 ops.spike_conv_bwd_dw = capturing(real[2], "conv dw")
+                ops.spike_conv_bwd_ds = capturing(real[3], "conv ds")
+            conv_kernel.conv_col2im = ref.conv_col2im = col2im_off_the_card
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
@@ -984,7 +1040,8 @@ def main() -> int:
                 loss, grads, fwd_s, bwd_s = timed_step(params, backend)
             finally:
                 (ops.spike_gemm_bwd_dw, ops.spike_gemm_bwd_ds,
-                 ops.spike_conv_bwd_dw) = real
+                 ops.spike_conv_bwd_dw, ops.spike_conv_bwd_ds) = real
+                conv_kernel.conv_col2im = ref.conv_col2im = real_col2im
             train_launches[backend] = ops.launch_counts()
             peak = torch.cuda.max_memory_allocated()
             want = {name: NUM_STEPS * n
@@ -1020,6 +1077,8 @@ def main() -> int:
                 raise AssertionError(f"{backend}'s gradients differ by {rel}")
         if sum(g.abs().sum().item() for g in grads0) == 0:
             raise AssertionError("every gradient is zero")
+        log("  no training step ran conv_col2im on the card: the conv "
+            "layers' dS built no patch-space cotangent")
         del train_results, grads
         report["train_step"] = train_report
         report["train_launches"] = train_launches
@@ -1346,7 +1405,8 @@ def main() -> int:
                 2 * nnz * feats)
             per_layer.append(row)
         layer_of = {(m, k): name for name, (m, k, _) in net5_bwd.items()}
-        for (kind, _, _), (a, b, kw) in sorted(bwd_probe.items()):
+        conv_of = {(BATCH, 128, 128, 2): "conv1", (BATCH, 64, 64, 32): "conv2"}
+        for (kind, _, _), (a, b, kw, args) in sorted(bwd_probe.items()):
             if kind == "conv dw":
                 # dW reads the input spikes, the g rows an event reaches,
                 # and writes dW; the bound of the matrix dW over the patch
@@ -1391,6 +1451,50 @@ def main() -> int:
                     4 * (s_read + g_rows * n + 9 * c * n + flags.numel()),
                     2 * nnz * n)[0]
                 del patches, flags
+            elif kind == "conv ds":
+                # the whole input gradient: the kernel reads g and W once
+                # and writes dS once; its operations are each nonzero of g
+                # times the C channels of each input pixel it reaches
+                g, w = a, b
+                x_shape = tuple(args[0])
+                bsz, h, wd, c = x_shape
+                feats = w.shape[-1]
+                nnz_px = (g != 0).sum(-1).double()
+                reach = [torch.tensor([sum(0 <= o + d - 1 < size
+                                           for d in range(3))
+                                       for o in range(size)],
+                                      dtype=torch.float64, device=dev)
+                         for size in (h, wd)]
+                nnz = float((nnz_px * reach[0][:, None]
+                             * reach[1][None, :]).sum())
+                g_nchw = g.permute(0, 3, 1, 2)
+                w_oihw = w.permute(3, 2, 0, 1).contiguous()
+                in_nchw = (bsz, c, h, wd)
+                row = {"kernel": "spike_gemm_ds", "layer": conv_of[x_shape],
+                       "shape": [bsz, h, wd, c, feats],
+                       "cotangent_density": float((g != 0).double().mean()),
+                       "zero_row_share": float((nnz_px == 0).double()
+                                               .mean()),
+                       "ms": median_ms(torch, lambda: ops.spike_conv_bwd_ds(
+                           g, w, x_shape, **kw)),
+                       "kernel_ms": median_ms(torch, lambda: bwd_kernel
+                                              .spike_conv_ds_cuda(
+                                                  g, w, x_shape, 1, "SAME")),
+                       "plain_ms": median_ms(torch, lambda: ref
+                                             .spike_conv_ds_ref(g, w,
+                                                                x_shape)),
+                       "library_ms": median_ms(
+                           torch, lambda: torch.nn.grad.conv2d_input(
+                               in_nchw, w_oihw, g_nchw, padding=1)),
+                       "kernel_device_ms": device_ms(
+                           torch, lambda: bwd_kernel.spike_conv_ds_cuda(
+                               g, w, x_shape, 1, "SAME")),
+                       "library_device_ms": device_ms(
+                           torch, lambda: torch.nn.grad.conv2d_input(
+                               in_nchw, w_oihw, g_nchw, padding=1))}
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    4 * (g.numel() + w.numel() + bsz * h * wd * c),
+                    2 * nnz * c)
             elif kind == "dw":
                 s, g, flags = a, b, kw["flags"]
                 m, k = s.shape
@@ -1402,12 +1506,15 @@ def main() -> int:
                        "ms": median_ms(torch, lambda: ops.spike_gemm_bwd_dw(
                            s, g, flags=flags)),
                        "kernel_ms": median_ms(torch, lambda: bwd_kernel
-                                              .spike_gemm_dw_cuda(s, g,
-                                                                  flags)),
+                                              .spike_gemm_dw_cuda(s, g)),
                        "plain_ms": median_ms(
                            torch, lambda: ref.spike_gemm_dw_ref(s, g)),
                        "library_ms": median_ms(torch,
-                                               lambda: torch.matmul(s.T, g))}
+                                               lambda: torch.matmul(s.T, g)),
+                       "kernel_device_ms": device_ms(
+                           torch, lambda: bwd_kernel.spike_gemm_dw_cuda(s, g)),
+                       "library_device_ms": device_ms(
+                           torch, lambda: torch.matmul(s.T, g))}
                 s_read, g_rows, _ = gated_counts(torch, flags, m, k)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     4 * (s_read + g_rows * n + k * n + flags.numel()),
@@ -1425,12 +1532,15 @@ def main() -> int:
                        "ms": median_ms(torch,
                                        lambda: ops.spike_gemm_bwd_ds(g, w)),
                        "kernel_ms": median_ms(torch, lambda: bwd_kernel
-                                              .spike_gemm_ds_cuda(g, w,
-                                                                  gflags)),
+                                              .spike_gemm_ds_cuda(g, w)),
                        "plain_ms": median_ms(
                            torch, lambda: ref.spike_gemm_ds_ref(g, w)),
                        "library_ms": median_ms(torch,
-                                               lambda: torch.matmul(g, w.T))}
+                                               lambda: torch.matmul(g, w.T)),
+                       "kernel_device_ms": device_ms(
+                           torch, lambda: bwd_kernel.spike_gemm_ds_cuda(g, w)),
+                       "library_device_ms": device_ms(
+                           torch, lambda: torch.matmul(g, w.T))}
                 g_read, _, w_cols = gated_counts(torch, gflags, m, n)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     4 * (g_read + k * w_cols + m * k + gflags.numel()),

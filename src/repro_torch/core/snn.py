@@ -13,7 +13,7 @@ Backends of the accumulate phase: ``"torch"`` (plain PyTorch ops),
 block-skip conv for Conv layers).  All three give the same spikes, so the
 default is the kernel path.  Every path is differentiable: on the kernel
 backends the layers are ``kernels.ops``' autograd Functions, whose backward
-runs the block-skip dW and dS kernels.
+runs the dW and dS kernels.
 """
 from __future__ import annotations
 

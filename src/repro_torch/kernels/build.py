@@ -22,10 +22,10 @@ from pathlib import Path
 
 import torch
 
-#: Output tile (block_m x block_n) and reduction depth (block_k) of every
-#: kernel.  Passed to nvcc as -DBM/-DBN/-DBK, and the occupancy flags are
-#: computed at (block_m, block_k).
-TILE = {"block_m": 32, "block_n": 64, "block_k": 32}
+#: The spike tile of the forward's occupancy flags, (block_m rows,
+#: block_k columns): the dense split kernels' 32-row flag rows and 32-deep
+#: slabs.  Passed to nvcc as -DBM/-DBK.
+TILE = {"block_m": 32, "block_k": 32}
 #: Columns of N a block of the dense split kernels owns
 #: (``csrc/dense_split.cuh``); passed to nvcc as -DDENSE_COLS.
 DENSE_COLS = 256
@@ -38,8 +38,8 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DBM={TILE['block_m']}", f"-DBN={TILE['block_n']}",
-              f"-DBK={TILE['block_k']}", f"-DDENSE_COLS={DENSE_COLS}")
+              f"-DBM={TILE['block_m']}", f"-DBK={TILE['block_k']}",
+              f"-DDENSE_COLS={DENSE_COLS}")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

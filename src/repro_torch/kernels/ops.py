@@ -11,13 +11,17 @@ and to ``skip_fraction``.  The conv kernels find their own events in the
 spikes and take no flags.
 
 ``spike_gemm_train``, ``spike_conv_train`` and ``spike_gemm_lif_step`` are
-differentiable.  The dense Functions' forward flags ride the saved tensors
-and their backward runs the block-skip dW and dS (``spike_gemm_bwd_dw`` /
-``_ds``); the conv Function saves its input spikes and runs the conv dW
-(``spike_conv_bwd_dw``) and dS in patch space folded back by
-``conv_col2im``; all on the card as kernels and on the CPU as their plain
-versions.  dS runs only where ``ctx.needs_input_grad`` asks for it (a net's
-input spikes need none).
+differentiable.  The dense Functions' backward runs the event-driven dW
+and the tiled dS (``spike_gemm_bwd_dw`` / ``_ds``), which find their own
+zeros (the forward's flags ride the saved tensors and are checked against
+the tile grid); the conv Function saves its input spikes and runs the conv
+dW (``spike_conv_bwd_dw``) and the conv dS (``spike_conv_bwd_ds``), which
+writes the (B, H, W, C) input cotangent directly: on the card no
+patch-space cotangent exists and no col2im runs.  All run on the card as
+kernels and on the CPU as their plain versions (there the conv dS is the
+matrix dS in patch space folded back by ``conv_col2im``).  dS runs only
+where ``ctx.needs_input_grad`` asks for it (a net's input spikes need
+none).
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.kernels import spike_gemm as gemm_kernel
 from repro_torch.kernels import spike_gemm_bwd as bwd_kernel
 from repro_torch.kernels import spike_gemm_fused as fused_kernel
 from repro_torch.kernels.build import TILE, tile_grid
-from repro_torch.kernels.spike_conv import conv_col2im, conv_out_size
+from repro_torch.kernels.spike_conv import conv_out_size
 
 #: Kernel name -> (its binding module, the name of its launch counter).
 KERNELS = {"spike_gemm": (gemm_kernel, "launches"),
@@ -111,9 +115,10 @@ def block_flags(spikes: torch.Tensor, *, block_m: int = TILE["block_m"],
 
 def cotangent_block_flags(g: torch.Tensor) -> torch.Tensor:
     """(ceil(M/block_m), ceil(N/block_k)) int32 any-nonzero occupancy of a
-    SIGNED (M, N) cotangent: the gate of dS, whose reduction runs over N in
-    chunks of ``block_k``.  Not ``block_flags``: a tile whose entries cancel
-    to a zero sum still holds work."""
+    SIGNED (M, N) cotangent: the JAX package's gate of dS, whose reduction
+    runs over N in chunks of ``block_k`` (the card's dS tests the chunks it
+    stages itself; these flags are only checked).  Not ``block_flags``: a
+    tile whose entries cancel to a zero sum still holds work."""
     bm, bk = TILE["block_m"], TILE["block_k"]
     return ref.block_flags_any_ref(_pad_to(g, (bm, bk)), bm, bk)
 
@@ -182,17 +187,17 @@ def spike_conv(s_in: torch.Tensor, weights: torch.Tensor, *,
 
 def spike_gemm_bwd_dw(spikes: torch.Tensor, g: torch.Tensor, *,
                       flags: torch.Tensor = None) -> torch.Tensor:
-    """``dW[K,N] = Sᵀ @ g``, skipping the spike tiles the forward skipped.
+    """``dW[K,N] = Sᵀ @ g``; on the card only the nonzero spikes are walked.
 
-    ``flags``: the FORWARD's ``block_flags(spikes)``; a skipped (m, k) tile
-    is all-zero and adds exactly zero to dW's rows k."""
-    if flags is None:
-        flags = block_flags(spikes)
-    _check_flags(flags, tile_grid(*spikes.shape),
-                 f"spikes {tuple(spikes.shape)}")
+    ``flags``: optional, the FORWARD's ``block_flags(spikes)``, checked
+    against the tile grid; the kernel finds the events itself (a tile the
+    forward skipped holds none)."""
+    if flags is not None:
+        _check_flags(flags, tile_grid(*spikes.shape),
+                     f"spikes {tuple(spikes.shape)}")
     if _on_cuda(spikes):
-        return bwd_kernel.spike_gemm_dw_cuda(
-            spikes.contiguous(), g.contiguous(), flags.contiguous())
+        return bwd_kernel.spike_gemm_dw_cuda(spikes.contiguous(),
+                                             g.contiguous())
     return ref.spike_gemm_dw_ref(spikes, g)
 
 
@@ -213,16 +218,34 @@ def spike_conv_bwd_dw(s_in: torch.Tensor, g: torch.Tensor, *,
 
 def spike_gemm_bwd_ds(g: torch.Tensor, weights: torch.Tensor, *,
                       gflags: torch.Tensor = None) -> torch.Tensor:
-    """``dS[M,K] = g @ Wᵀ``, skipping the all-zero tiles of the cotangent.
+    """``dS[M,K] = g @ Wᵀ``; on the card the all-zero chunks of the
+    cotangent are skipped.
 
-    ``gflags``: optional precomputed ``cotangent_block_flags(g)``."""
-    if gflags is None:
-        gflags = cotangent_block_flags(g)
-    _check_flags(gflags, tile_grid(*g.shape), f"g {tuple(g.shape)}")
+    ``gflags``: optional ``cotangent_block_flags(g)``, checked against the
+    tile grid; the kernel tests the chunks it stages itself."""
+    if gflags is not None:
+        _check_flags(gflags, tile_grid(*g.shape), f"g {tuple(g.shape)}")
     if _on_cuda(g):
-        return bwd_kernel.spike_gemm_ds_cuda(
-            g.contiguous(), weights.contiguous(), gflags.contiguous())
+        return bwd_kernel.spike_gemm_ds_cuda(g.contiguous(),
+                                             weights.contiguous())
     return ref.spike_gemm_ds_ref(g, weights)
+
+
+def spike_conv_bwd_ds(g: torch.Tensor, weights: torch.Tensor,
+                      x_shape: tuple[int, ...], *, stride: int = 1,
+                      padding: str = "SAME") -> torch.Tensor:
+    """dS (B, H, W, C) = ``x_shape`` of ``spike_conv`` from its
+    (B, OH, OW, F) cotangent and (KH, KW, C, F) weights.  On the card the
+    kernel writes it directly, with no patch-space cotangent and no col2im;
+    on the CPU it is the matrix dS in patch space folded back by
+    ``conv_col2im``."""
+    x_shape = tuple(int(s) for s in x_shape)
+    if _on_cuda(g):
+        return bwd_kernel.spike_conv_ds_cuda(g.contiguous(),
+                                             weights.contiguous(), x_shape,
+                                             stride, padding)
+    return ref.spike_conv_ds_ref(g, weights, x_shape, stride=stride,
+                                 padding=padding)
 
 
 def _gemm_cotangents(needs: tuple[bool, bool], g: torch.Tensor,
@@ -251,8 +274,8 @@ class _SpikeGemmTrain(torch.autograd.Function):
 
 def spike_gemm_train(spikes: torch.Tensor,
                      weights: torch.Tensor) -> torch.Tensor:
-    """Differentiable ``S @ W``: block-skip forward, block-skip dW on the
-    forward's flags and dS on the cotangent's."""
+    """Differentiable ``S @ W``: the block-skip forward, then the
+    event-driven dW and the dS that skips zero chunks of the cotangent."""
     return _SpikeGemmTrain.apply(spikes, weights)
 
 
@@ -267,17 +290,13 @@ class _SpikeConvTrain(torch.autograd.Function):
     def backward(ctx, g):
         s_in, weights = ctx.saved_tensors
         stride, padding = ctx.conv
-        kh, kw, cin, cout = weights.shape
+        kh, kw = weights.shape[:2]
         need_s, need_w = ctx.needs_input_grad[:2]
         g = g.contiguous()
         d_s = d_w = None
         if need_s:
-            # dS in patch space, then col2im: its adjoint, with no patch
-            # matrix of the input
-            d_p = spike_gemm_bwd_ds(g.reshape(-1, cout),
-                                    weights.reshape(kh * kw * cin, cout))
-            d_s = conv_col2im(d_p, tuple(s_in.shape), kh, kw, stride,
-                              padding)
+            d_s = spike_conv_bwd_ds(g, weights, tuple(s_in.shape),
+                                    stride=stride, padding=padding)
         if need_w:
             d_w = spike_conv_bwd_dw(s_in, g, kernel_size=(kh, kw),
                                     stride=stride, padding=padding)
@@ -287,8 +306,8 @@ class _SpikeConvTrain(torch.autograd.Function):
 def spike_conv_train(s_in: torch.Tensor, weights: torch.Tensor, *,
                      stride: int = 1, padding: str = "SAME") -> torch.Tensor:
     """Differentiable convolution: ``spike_conv``'s forward, then the conv
-    dW on the input spikes and dS on the cotangent of the patch matrix,
-    folded back to (B, H, W, C) by col2im."""
+    dW on the input spikes and the conv dS, (B, H, W, C), on the
+    cotangent."""
     return _SpikeConvTrain.apply(s_in, weights, int(stride), str(padding))
 
 
@@ -342,7 +361,7 @@ def spike_gemm_lif_step(spikes: torch.Tensor, weights: torch.Tensor,
     Its forward equals ``spike_gemm(S, W) + b`` composed with
     ``lif.lif_step``: the same accumulate and the same separately rounded
     epilogue.  Its backward applies the fast-sigmoid surrogate of slope
-    ``slope`` and the LIF chain rule, then the block-skip dW and dS."""
+    ``slope`` and the LIF chain rule, then the dense dW and dS."""
     if reset_mechanism not in fused_kernel.RESETS:
         raise ValueError(f"unknown reset mechanism {reset_mechanism!r}")
     return _SpikeGemmLifStep.apply(spikes, weights, bias, u_prev, s_prev,

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.spike_conv import conv_out_size, conv_patches
+from repro_torch.kernels.spike_conv import (conv_col2im, conv_out_size,
+                                             conv_patches)
 
 
 def lif_step_ref(u_prev: torch.Tensor, s_prev: torch.Tensor,
@@ -132,6 +133,19 @@ def spike_conv_dw_ref(s_in: torch.Tensor, g: torch.Tensor, kh: int, kw: int,
 def spike_gemm_ds_ref(g: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Dense ``dS = g @ Wᵀ`` in fp32: (M, N) cotangent, (K, N) weights."""
     return g.to(torch.float32) @ weights.to(torch.float32).T
+
+
+def spike_conv_ds_ref(g: torch.Tensor, weights: torch.Tensor,
+                      x_shape: tuple[int, ...], *, stride: int = 1,
+                      padding: str = "SAME") -> torch.Tensor:
+    """dS (B, H, W, C) = ``x_shape`` of the convolution from its
+    (B, OH, OW, F) cotangent and (KH, KW, C, F) weights: the JAX package's
+    formula, the matrix dS in patch space, ``g Wᵀ`` in fp32, folded back by
+    ``conv_col2im``."""
+    kh, kw, c, f = weights.shape
+    d_patches = spike_gemm_ds_ref(g.reshape(-1, f),
+                                  weights.reshape(kh * kw * c, f))
+    return conv_col2im(d_patches, tuple(x_shape), kh, kw, stride, padding)
 
 
 def spike_gemm_lif_ref(spikes: torch.Tensor, weights: torch.Tensor,

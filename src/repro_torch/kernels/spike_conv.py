@@ -9,9 +9,10 @@ memory (``csrc/conv_halo.cuh``), so no patch matrix is built on the card.
 with features in (dy, dx, c) order (the HWIO filter reshaped to
 (KH·KW·C, F) is its weight matrix; ``F.unfold`` orders features
 (c, dy, dx) and does not fit that reshape): the plain conv dW in
-``ref.py`` runs on it.  ``conv_col2im`` is its adjoint, which folds the
-patch-space cotangent of dS back to the input.  ``ops.spike_conv`` is the
-public entry point.
+``ref.py`` runs on it.  ``conv_col2im`` is its adjoint, with which the
+plain conv dS in ``ref.py`` folds the patch-space cotangent back to the
+input (the card's conv dS writes the input's shape directly).
+``ops.spike_conv`` is the public entry point.
 """
 from __future__ import annotations
 

@@ -236,21 +236,32 @@ def _cotangent(rng, shape, density=0.6):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(70, 1000, 130), (5, 33, 7),
-                                   (4100, 18, 32)])
+                                   (4100, 18, 32), (64, 32768, 512),
+                                   (130, 300, 68)])
 @pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 1.0])
 def test_cuda_dw_ds_equal_plain(cuda, m, k, n, density):
+    """The dense dW and dS on grid operands, at net-5's fc1 (dS's large
+    blocks, dW's 16 columns a lane) and at more than 64 rows (dW's chunks
+    of M): equal to the plain versions bit for bit, the same bytes twice,
+    one counted launch each; dW also on spikes of other values."""
     rng = np.random.default_rng(12)
     s = _t(_spikes(rng, (m, k), density)).to(cuda)
     g = _t(_cotangent(rng, (m, n))).to(cuda)
     w = _t(_grid_weights(rng, (k, n))).to(cuda)
     dw_before = spike_gemm_bwd.dw_launches
+    ds_before = spike_gemm_bwd.ds_launches
     dw = ops.spike_gemm_bwd_dw(s, g)
     ds = ops.spike_gemm_bwd_ds(g, w)
     torch.cuda.synchronize()
     assert spike_gemm_bwd.dw_launches == dw_before + 1
+    assert spike_gemm_bwd.ds_launches == ds_before + 1
     assert torch.equal(dw, ref.spike_gemm_dw_ref(s, g))
     assert torch.equal(ds, ref.spike_gemm_ds_ref(g, w))
     assert torch.equal(dw, ops.spike_gemm_bwd_dw(s, g))     # no run-to-run
+    assert torch.equal(ds, ops.spike_gemm_bwd_ds(g, w))
+    values = s * _t(rng.integers(1, 9, (m, k)).astype(np.float32)).to(cuda) / 4
+    assert torch.equal(ops.spike_gemm_bwd_dw(values, g),
+                       ref.spike_gemm_dw_ref(values, g))
 
 
 @pytest.mark.cuda
@@ -260,6 +271,106 @@ def test_cuda_ds_does_not_skip_a_cancelling_tile(cuda):
     ds = ops.spike_gemm_bwd_ds(g, torch.ones(6, 64, device=cuda))
     assert torch.equal(ds[3], torch.full((6,), 0.75, device=cuda))
     assert torch.equal(ds[7], torch.full((6,), -0.75, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", CONV_LAYERS)
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 1.0])
+def test_cuda_conv_ds_equals_plain(cuda, layer, density):
+    """The conv dS on grid operands: equal to the plain version (the matrix
+    dS in patch space folded back by col2im) bit for bit, the same bytes on
+    a second call, one counted launch per call."""
+    x, w, _, conv, out = _conv_operands(cuda, layer, 0.3, 21)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    g = torch.randn(out.shape, generator=gen, device=cuda).round().clamp(-2, 2)
+    g = g * (torch.rand(out.shape, generator=gen, device=cuda) < density)
+    before = spike_gemm_bwd.ds_launches
+    ds = ops.spike_conv_bwd_ds(g, w, tuple(x.shape), **conv)
+    torch.cuda.synchronize()
+    assert spike_gemm_bwd.ds_launches == before + 1
+    assert torch.equal(ds, ref.spike_conv_ds_ref(g, w, tuple(x.shape),
+                                                 **conv))
+    assert torch.equal(ds, ops.spike_conv_bwd_ds(g, w, tuple(x.shape),
+                                                 **conv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", CONV_LAYERS)
+def test_cuda_conv_ds_is_col2im_of_the_dense_ds(cuda, layer):
+    """Normal operands: each tap an fmaf chain over ascending f, the taps
+    added in (dy, dx) order, so the conv dS equals col2im of the card's
+    dense dS in patch space bit for bit."""
+    b, h, wd, c, f, k, stride, padding = layer
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    oh, ow = spike_gemm_bwd.conv_ds_plan((b, h, wd, c), (k, k, c, f), stride,
+                                         padding)[4:6]
+    g = torch.randn((b, oh, ow, f), generator=gen, device=cuda)
+    w = torch.randn((k, k, c, f), generator=gen, device=cuda)
+    ds = ops.spike_conv_bwd_ds(g, w, (b, h, wd, c), stride=stride,
+                               padding=padding)
+    patches = spike_gemm_bwd.spike_gemm_ds_cuda(g.reshape(-1, f),
+                                                w.reshape(-1, f))
+    assert torch.equal(ds, spike_conv.conv_col2im(patches, (b, h, wd, c), k,
+                                                  k, stride, padding))
+
+
+@pytest.mark.cuda
+def test_cuda_conv_ds_does_not_skip_a_cancelling_row(cuda):
+    g = torch.zeros(2, 8, 8, 32, device=cuda)
+    g[1, 3, 4, :16], g[1, 3, 4, 16:] = 0.75, -0.75    # the row sums to zero
+    w = torch.ones(3, 3, 32, 32, device=cuda)
+    w[..., 16:] = 2.0
+    ds = ops.spike_conv_bwd_ds(g, w, (2, 8, 8, 32))
+    assert torch.equal(ds, ref.spike_conv_ds_ref(g, w, (2, 8, 8, 32)))
+    assert torch.equal(ds[1, 2:5, 3:6], torch.full((3, 3, 32), -12.0,
+                                                   device=cuda))
+
+
+@pytest.mark.cuda
+def test_cuda_conv_ds_refuses_what_it_cannot_take(cuda):
+    g = torch.ones(2, 8, 8, 8, device=cuda)
+    w = torch.ones(3, 3, 4, 8, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        spike_gemm_bwd.spike_conv_ds_cuda(g.double(), w, (2, 8, 8, 4), 1,
+                                          "SAME")
+    with pytest.raises(ValueError, match="shape"):
+        spike_gemm_bwd.spike_conv_ds_cuda(g[:, :7], w, (2, 8, 8, 4), 1,
+                                          "SAME")
+    with pytest.raises(ValueError, match="input channels"):
+        spike_gemm_bwd.spike_conv_ds_cuda(g, w, (2, 8, 8, 5), 1, "SAME")
+    with pytest.raises(ValueError, match="stride"):
+        spike_gemm_bwd.spike_conv_ds_cuda(g, w, (2, 8, 8, 4), 0, "SAME")
+
+
+@pytest.mark.cuda
+def test_cuda_conv_backward_builds_no_patch_space_cotangent(cuda,
+                                                            monkeypatch):
+    """The conv Function's backward on the card never folds a patch-space
+    cotangent back (col2im raises on a CUDA tensor here), and its output
+    and gradients equal the CPU's bit for bit on grid operands."""
+    real = spike_conv.conv_col2im
+
+    def col2im(d_patches, *args):
+        if d_patches.is_cuda:
+            raise AssertionError("col2im ran on the card")
+        return real(d_patches, *args)
+
+    monkeypatch.setattr(spike_conv, "conv_col2im", col2im)
+    monkeypatch.setattr(ref, "conv_col2im", col2im)
+    rng = np.random.default_rng(24)
+    for stride, padding, shape in ((1, "SAME", (2, 16, 16, 32)),
+                                   (2, "VALID", (2, 17, 15, 4))):
+        args = [_spikes(rng, shape, 0.2),
+                _grid_weights(rng, (3, 3, shape[-1], 33))]
+        out = ref.spike_conv_ref(_t(args[0]), _t(args[1]), stride=stride,
+                                 padding=padding)
+        cots = [_cotangent(rng, tuple(out.shape))]
+        fn = lambda x, w: ops.spike_conv_train(x, w, stride=stride,
+                                               padding=padding)
+        got = _backward_step(fn, args, cots, cuda)
+        want = _backward_step(fn, args, cots, "cpu")
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 def _backward_step(fn, args, cots, device):

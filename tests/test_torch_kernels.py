@@ -448,6 +448,11 @@ class TestDispatch:
         ops.spike_gemm_bwd_ds(torch.ones(8, 6), w)
         ops.spike_conv_bwd_dw(torch.ones(1, 5, 5, 2), torch.ones(1, 5, 5, 4),
                               kernel_size=(3, 3))
+        ops.spike_conv_bwd_ds(torch.ones(1, 5, 5, 4), torch.ones(3, 3, 2, 4),
+                              (1, 5, 5, 2))
+        ops.spike_conv_train(torch.ones(1, 5, 5, 2).requires_grad_(),
+                             torch.ones(3, 3, 2, 4).requires_grad_()
+                             ).sum().backward()
         ops.lif_step(torch.zeros(8, 6), torch.zeros(8, 6), torch.ones(8, 6),
                      beta=0.9, threshold=1.0)
         ops.penc_compact(s, 16)
@@ -470,15 +475,16 @@ class TestDispatch:
             torch.ones(4, 4), torch.ones(4, 4),
             torch.ones(1, 1, dtype=torch.int32), beta=0.9, threshold=1.0),
         lambda: spike_gemm_bwd.spike_gemm_dw_cuda(
-            torch.ones(4, 4), torch.ones(4, 4),
-            torch.ones(1, 1, dtype=torch.int32)),
+            torch.ones(4, 4), torch.ones(4, 4)),
         lambda: spike_gemm_bwd.spike_gemm_ds_cuda(
-            torch.ones(4, 4), torch.ones(4, 4),
-            torch.ones(1, 1, dtype=torch.int32)),
+            torch.ones(4, 4), torch.ones(4, 4)),
         lambda: lif_kernel.lif_step_cuda(
             torch.ones(4, 4), torch.ones(4, 4), torch.ones(4, 4), beta=0.9,
             threshold=1.0),
         lambda: penc_kernel.penc_compact_cuda(torch.ones(4, 4), 4),
+        lambda: spike_gemm_bwd.spike_conv_ds_cuda(
+            torch.ones(1, 5, 5, 4), torch.ones(3, 3, 2, 4), (1, 5, 5, 2), 1,
+            "SAME"),
     ])
     def test_kernel_wrappers_refuse_cpu_tensors(self, launch):
         with pytest.raises(ValueError, match="CUDA kernel"):
@@ -528,6 +534,5 @@ class TestBuild:
     def test_flags_carry_the_tile_and_target(self):
         flags = " ".join(build.NVCC_FLAGS)
         assert "arch=compute_90a,code=sm_90a" in flags
-        for macro, key in (("BM", "block_m"), ("BN", "block_n"),
-                           ("BK", "block_k")):
+        for macro, key in (("BM", "block_m"), ("BK", "block_k")):
             assert f"-D{macro}={build.TILE[key]}" in flags
