@@ -1,7 +1,5 @@
 """Times of the backward's kernels and of net-5's training step for two
-checkouts of this repo on one card: each checkout in processes of its own,
-run in the order A, B, B, A, so a drift of the card's clock falls on both
-alike.
+checkouts of this repo on one card, run A, B, B, A by ``ab.main``.
 
     python3 bwd_ab.py OTHER        # OTHER: the root of another checkout
 
@@ -25,17 +23,13 @@ events):
 A (this checkout) and B (OTHER) each get the mean of their two runs; the
 table goes to stdout and every run to ``chiprun_out/bwd_ab.json``.
 """
-import json
 import math
-import os
 import statistics
-import subprocess
 import sys
 import time
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent
-OUT = ROOT / "chiprun_out" / "bwd_ab.json"
+import ab
+
 DENSITY = 0.15
 COTANGENT_DENSITY = 0.65
 #: (layer, (M, K, N)) of every dense layer of the repo's cells at batch 64.
@@ -155,7 +149,7 @@ def time_training(torch) -> dict:
                 infer() for _ in range(2))}
 
 
-def worker() -> int:
+def measure() -> dict:
     import torch
 
     from chip_smoke import device_ms, median_ms
@@ -165,47 +159,20 @@ def worker() -> int:
     build.build_all()
     out = time_kernels(torch, device_ms, median_ms)
     out["training"] = time_training(torch)
-    print(json.dumps(out), flush=True)
-    return 0
+    return out
 
 
-def run(tree: Path) -> dict:
-    env = dict(os.environ, PYTHONPATH=str(tree / "src"))
-    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                          "--worker"], env=env, capture_output=True,
-                         text=True, timeout=1200)
-    if out.returncode != 0:
-        raise RuntimeError(f"worker on {tree} failed:\n{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
-
-
-def main(argv) -> int:
-    if argv[1:] == ["--worker"]:
-        return worker()
-    if len(argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    trees = {"A": ROOT, "B": Path(argv[1]).resolve()}
-    runs = [(name, run(trees[name])) for name in "ABBA"]
-
-    def mean(name, *keys):
-        vals = []
-        for n, r in runs:
-            if n == name:
-                for k in keys:
-                    r = r[k]
-                vals.append(r)
-        return None if None in vals else sum(vals) / len(vals)
-
+def report(runs) -> tuple[int, dict]:
     rows = {}
     print("layer | device ms A / B | between events ms A / B")
     for layer, _ in DENSE + [(c[0], None) for c in CONV]:
         for kind in ("dw", "ds"):
             if kind not in runs[0][1][layer]:
                 continue
-            row = {tree: {"device_ms": mean(tree, layer, kind),
-                          "events_ms": mean(tree, layer, kind + "_events")}
-                   for tree in trees}
+            row = {tree: {"device_ms": ab.mean(runs, tree, layer, kind),
+                          "events_ms": ab.mean(runs, tree, layer,
+                                               kind + "_events")}
+                   for tree in "AB"}
             rows[f"{layer} {kind}"] = row
             print(f"{layer} {kind} | {row['A']['device_ms']:.5f} / "
                   f"{row['B']['device_ms']:.5f} | "
@@ -213,19 +180,17 @@ def main(argv) -> int:
                   f"{row['B']['events_ms']:.5f}")
     for key in ("forward_s", "backward_s", "backward_device_ms",
                 "backward_kernels", "evaluate_dump_traces_s"):
-        rows[key] = {tree: mean(tree, "training", key) for tree in trees}
+        rows[key] = {tree: ab.mean(runs, tree, "training", key)
+                     for tree in "AB"}
         print(f"training {key} | {rows[key]['A']:.4f} / "
               f"{rows[key]['B']:.4f}")
     losses = {r["training"]["loss"] for _, r in runs}
     print(f"losses {sorted(losses)}")
     if len(losses) != 1 or not all(math.isfinite(v) for v in losses):
         print("the two checkouts' losses differ", file=sys.stderr)
-        return 1
-    OUT.parent.mkdir(exist_ok=True)
-    OUT.write_text(json.dumps({"trees": {k: str(v) for k, v in trees.items()},
-                               "runs": runs, "rows": rows}, indent=1))
-    return 0
+        return 1, rows
+    return 0, rows
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv))
+    sys.exit(ab.main(sys.argv, __doc__, measure, report))

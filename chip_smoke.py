@@ -230,27 +230,46 @@ def median_ms(torch, fn, reps=25, warmup=3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
-def device_ms(torch, fn, calls=20, tries=3):
+def device_ms(torch, fn, calls=20, tries=3, flush=None):
     """Device time a call of ``fn`` takes: the profiler's sum of the CUDA
     kernels ``calls`` calls launch, over ``calls``, after one warm-up.
     Unlike ``median_ms`` it leaves out the host time before each launch,
     which one timed call encloses whenever the host is slower than the
-    device.  The profiler now and then records no kernel at all; then it
-    tries again, and after ``tries`` empty traces returns None (not
-    measured), never 0."""
+    device.  ``flush`` (``l2_flush``), if given, runs before each call, and
+    the kernels of a trace of ``flush`` alone are not counted.  The
+    profiler now and then records no kernel at all; then it tries again,
+    and after ``tries`` empty traces returns None (not measured), never 0."""
     from torch.profiler import ProfilerActivity, profile
+
+    def kernels(fns):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                for f in fns:
+                    f()
+            torch.cuda.synchronize()
+        return [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        skip = {e.name for e in kernels([flush])} if flush else set()
+        if flush and not skip:
+            continue
+        total = sum(e.device_time_total
+                    for e in kernels([flush, fn] if flush else [fn])
+                    if e.name not in skip)
         if total > 0:
             return total / calls / 1e3
     return None
+
+
+def l2_flush(torch, device):
+    """A call that reads 128 MB, over twice the H100's 50 MB L2, so that
+    nothing an earlier call read or wrote stays there; a read leaves no
+    dirty line for the next kernel to write back."""
+    scrub = torch.zeros(32 * 2 ** 20, dtype=torch.float32, device=device)
+    return scrub.sum
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -702,12 +721,14 @@ def main() -> int:
                              f"{shape} {dtype} {reset}")
                         n_cases += 1
         del u0, s0, cur, args, got
+        # rows of one tile (one launch) and of several, the last ragged
+        tile = penc_kernel.ROUND
         for shape in [(70, 1000), (5, 33), (3, 1), (64, 4099),
-                      (BATCH, 64 * 64 * 32)]:
+                      (5, 3 * tile + 7), (BATCH, 64 * 64 * 32)]:
             for d in DENSITIES:
                 x = spikes(shape, d)
-                for xx in ([x, unaligned(x)] if shape == (64, 4099)
-                           else [x]):
+                ragged = shape[1] in (4099, 3 * tile + 7)
+                for xx in [x, unaligned(x)] if ragged else [x]:
                     for cap in (shape[1], PENC_CHUNK):
                         idx, cnt = ops.penc_compact(xx, cap)
                         hold("penc_compact", [idx, cnt],
@@ -1551,6 +1572,9 @@ def main() -> int:
         # addresses of every layer's input traffic at step T/2 (capacity N;
         # the ECU's chunk apart).  Neither has one PyTorch call computing
         # the same function (torch.nonzero neither packs per row nor caps).
+        # Their device time is also read with the L2 flushed before each
+        # call: a repeated call would find the call before's bytes there.
+        flush = l2_flush(torch, dev)
         for name, shape in net5_membranes.items():
             lif = layers[name][0].lif
             u0 = torch.randn(shape, generator=gen, device=dev)
@@ -1569,7 +1593,13 @@ def main() -> int:
                                               .lif_step_cuda(*args, **kw)),
                        "plain_ms": median_ms(torch, lambda: ref.lif_step_ref(
                            *args, **kw)),
-                       "library_ms": None}
+                       "library_ms": None,
+                       "kernel_device_ms": device_ms(
+                           torch, lambda: lif_kernel.lif_step_cuda(
+                               *args, **kw)),
+                       "kernel_device_flushed_ms": device_ms(
+                           torch, lambda: lif_kernel.lif_step_cuda(
+                               *args, **kw), flush=flush)}
                 # 3 reads and 2 writes of each element; 5 operations each
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     5 * args[0].element_size() * args[0].numel(),
@@ -1590,7 +1620,13 @@ def main() -> int:
                                               .penc_compact_cuda(rows, cap)),
                        "plain_ms": median_ms(torch, lambda: ref
                                              .penc_compact_ref(rows, cap)),
-                       "library_ms": None}
+                       "library_ms": None,
+                       "kernel_device_ms": device_ms(
+                           torch, lambda: penc_kernel.penc_compact_cuda(
+                               rows, cap)),
+                       "kernel_device_flushed_ms": device_ms(
+                           torch, lambda: penc_kernel.penc_compact_cuda(
+                               rows, cap), flush=flush)}
                 # read every spike once, write every address slot and count
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     4 * (b * n + b * (cap + 1)), b * n)

@@ -1,6 +1,5 @@
 """Times of the dense spike kernels of two checkouts of this repo on
-one card: each checkout in processes of its own, run in the order A, B, B,
-A, so a drift of the card's clock falls on both alike.
+one card, run A, B, B, A by ``ab.main``.
 
     python3 dense_ab.py OTHER        # OTHER: the root of another checkout
 
@@ -16,14 +15,10 @@ and normal weights made from a seed, the same in both checkouts.  A (this
 checkout) and B (OTHER) each get the mean of their two runs; the table goes
 to stdout and every run to ``chiprun_out/dense_ab.json``.
 """
-import json
-import os
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent
-OUT = ROOT / "chiprun_out" / "dense_ab.json"
+import ab
+
 DENSITY = 0.15
 #: (layer, (M, K, N)) of every dense layer of the repo's cells at batch 64.
 SHAPES = [("net-5 fc1", (64, 32768, 512)), ("net-5 fc2", (64, 512, 256)),
@@ -67,41 +62,22 @@ def time_all(torch) -> dict:
     return times
 
 
-def worker() -> int:
+def measure() -> dict:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(json.dumps(time_all(torch)), flush=True)
-    return 0
+    return time_all(torch)
 
 
-def run(tree: Path) -> dict:
-    env = dict(os.environ, PYTHONPATH=str(tree / "src"))
-    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                          "--worker"], env=env, capture_output=True,
-                         text=True, timeout=1200)
-    if out.returncode != 0:
-        raise RuntimeError(f"worker on {tree} failed:\n{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
-
-
-def main(argv) -> int:
-    if argv[1:] == ["--worker"]:
-        return worker()
-    if len(argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    trees = {"A": ROOT, "B": Path(argv[1]).resolve()}
-    runs = [(name, run(trees[name])) for name in "ABBA"]
-    rows = []
+def report(runs) -> tuple[int, list]:
     kerns = ("spike_gemm", "spike_gemm_lif", "spike_gemm_events",
              "spike_gemm_lif_events")
+    rows = []
     print("layer | (M, K, N) | splits A / B | device us A / B: spike_gemm | "
           "spike_gemm_lif | between events: spike_gemm | spike_gemm_lif")
     for layer, _ in SHAPES:
-        mean = {name: {kern: sum(r[layer][kern] for n, r in runs
-                                 if n == name) / 2 for kern in kerns}
-                for name in trees}
-        splits = [dict(runs)[name][layer]["splits"] for name in trees]
+        mean = {tree: {kern: ab.mean(runs, tree, layer, kern)
+                       for kern in kerns} for tree in "AB"}
+        splits = [dict(runs)[tree][layer]["splits"] for tree in "AB"]
         rows.append({"layer": layer, "shape": runs[0][1][layer]["shape"],
                      "splits": splits, "mean_ms": mean})
         print(f"{layer} | {tuple(rows[-1]['shape'])} | {splits[0]} / "
@@ -109,11 +85,8 @@ def main(argv) -> int:
               + " | ".join(f"{1e3 * mean['A'][kern]:.2f} / "
                            f"{1e3 * mean['B'][kern]:.2f}"
                            for kern in kerns))
-    OUT.parent.mkdir(exist_ok=True)
-    OUT.write_text(json.dumps({"trees": {k: str(v) for k, v in trees.items()},
-                               "runs": runs, "rows": rows}, indent=1))
-    return 0
+    return 0, rows
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv))
+    sys.exit(ab.main(sys.argv, __doc__, measure, report))

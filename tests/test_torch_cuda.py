@@ -468,18 +468,28 @@ def test_cuda_lif_step_equals_plain(cuda, shape, aligned, reset, dtype):
         assert g.dtype == dtype and torch.equal(g, w)
 
 
+#: Entries of one tile of the two-pass penc_compact kernels.
+PENC_TILE = penc_kernel.ROUND
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,aligned", [((8, 128), True), ((3, 100), True),
-                                           ((16, 777), True),
-                                           ((4, 9000), True),
-                                           ((5, 4100), False)])
+@pytest.mark.parametrize("shape,aligned", [
+    ((8, 128), True), ((3, 100), True), ((16, 777), True), ((4, 9000), True),
+    ((5, 4100), False), ((4, PENC_TILE - 1), True), ((4, PENC_TILE + 1), True),
+    ((3, 3 * PENC_TILE + 7), True), ((3, 3 * PENC_TILE + 8), False),
+    ((64, 131072), True), ((1, 9000), True), ((257, 5000), True),
+    ((5, 1), True), ((6, 31), True), ((7, 33), True),
+    ((2, (penc_kernel.MAX_TILES + 1) * PENC_TILE + 5), True)])
 @pytest.mark.parametrize("density", [0.0, 0.01, 0.1, 0.9, 1.0])
 def test_cuda_penc_compact_equals_plain(cuda, shape, aligned, density):
+    """Rows of one tile (one launch) and of several (the two passes, the
+    last tile ragged; the last shape's tiles are two rounds long), at
+    capacities 0, 1, 7, 100, N, N + 5 and 2 N."""
     rng = np.random.default_rng(15)
     s = _t(_spikes(rng, shape, density)).to(cuda)
     if not aligned:
         s = _unaligned(s)
-    for capacity in (shape[1], 100, 7, 0, shape[1] + 5):
+    for capacity in (shape[1], 100, 7, 1, 0, shape[1] + 5, 2 * shape[1]):
         before = penc_kernel.launches
         idx, cnt = ops.penc_compact(s, capacity)
         torch.cuda.synchronize()
@@ -487,6 +497,47 @@ def test_cuda_penc_compact_equals_plain(cuda, shape, aligned, density):
         want_idx, want_cnt = ref.penc_compact_ref(s, capacity)
         assert idx.dtype == cnt.dtype == torch.int32
         assert torch.equal(idx, want_idx) and torch.equal(cnt, want_cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [PENC_TILE - 1, PENC_TILE, PENC_TILE + 1,
+                                 2 * PENC_TILE])
+def test_cuda_penc_compact_count_reaching_capacity_at_a_tile_edge(cuda, cut):
+    """Every entry of row 0 fires, so its count reaches ``capacity`` just
+    inside tile 0, exactly on its end, just past it or on tile 1's end."""
+    s = torch.ones(3, 3 * PENC_TILE + 7, device=cuda)
+    s[1, ::3] = 0.0
+    s[2] = 0.0
+    idx, cnt = ops.penc_compact(s, cut)
+    want_idx, want_cnt = ref.penc_compact_ref(s, cut)
+    assert torch.equal(idx, want_idx) and torch.equal(cnt, want_cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 700), (3, 3 * PENC_TILE + 7)])
+def test_cuda_penc_compact_values_other_than_spikes(cuda, shape):
+    """> 0 fires (0.5, 2, inf); 0, -0.0, -1 and NaN do not; on aligned and
+    unaligned storage alike."""
+    rng = np.random.default_rng(16)
+    vals = np.array([0.0, -0.0, -1.0, np.nan, 0.5, 2.0, np.inf], np.float32)
+    x = _t(vals[rng.integers(0, len(vals), shape)]).to(cuda)
+    for s in (x, _unaligned(x)):
+        for capacity in (shape[1], 50):
+            idx, cnt = ops.penc_compact(s, capacity)
+            want_idx, want_cnt = ref.penc_compact_ref(s, capacity)
+            assert torch.equal(idx, want_idx) and torch.equal(cnt, want_cnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,capacity", [((64, 131072), 131072),
+                                            ((64, 131072), 100),
+                                            ((64, 512), 512)])
+def test_cuda_penc_compact_gives_the_same_bytes_twice(cuda, shape, capacity):
+    rng = np.random.default_rng(17)
+    s = _t(_spikes(rng, shape, 0.1)).to(cuda)
+    first = ops.penc_compact(s, capacity)
+    second = ops.penc_compact(s, capacity)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda

@@ -209,6 +209,168 @@ class TestSplitPlan:
         np.testing.assert_array_equal(total, np.asarray(want))
 
 
+#: (b, n, capacity) of penc_compact: net-5's five layer inputs at batch 64
+#: (capacity N and the ECU's chunk), rows one short of, one past and three
+#: tiles and 7 past a tile, N % 32 != 0, B = 1, 3, 257, capacities 0, 1,
+#: N + 5 and 2 N, and the largest row the wrapper takes.
+PENC_PLANS = [(64, 131072, 131072), (64, 131072, 100), (64, 32768, 32768),
+              (64, 512, 512), (64, 256, 100), (4, 4095, 4095),
+              (4, 4097, 4097), (3, 3 * 4096 + 7, 100), (1, 9000, 0),
+              (3, 8192 + 31, 1), (257, 5000, 5005), (2, 12295, 2 * 12295),
+              (5, 0, 3), (6, 31, 62), (7, 33, 0), (1, 2 ** 31 - 1, 100)]
+
+
+def _penc_emulated(bits, capacity):
+    """Both passes of csrc/penc_compact.cu on ``penc_plan``'s tiles, in
+    NumPy: pass 1's bitmask (bit l of word j of a chunk is entry 4 l + j)
+    and tile counts; pass 2's first slot from the tile counts before, the
+    tile's addresses decoded from its words in chunk, lane, word order, and
+    its share of the pad.  A row of one tile (penc_row_kernel) is the same
+    round with no workspace.  Checks that each slot is written exactly
+    once."""
+    b, n = bits.shape
+    plan = penc_kernel.penc_plan(b, n, capacity)
+    chunk = penc_kernel.CHUNK
+    chunks = -(-n // chunk)
+    fired = np.zeros((b, chunks * chunk), bool)
+    fired[:, :n] = bits > 0
+    lane = np.arange(32, dtype=np.uint64)
+    words = (fired.reshape(b, chunks, 32, 4).transpose(0, 1, 3, 2)
+             .astype(np.uint64) << lane).sum(-1).astype(np.uint32)
+    assert plan.one_launch or words.size == plan.mask_words
+    spans = [plan.tile_range(t) for t in range(plan.tiles)]
+    # a tile's chunks: the last tile's last chunk may reach past the row
+    spans_c = [(lo // chunk, -(-hi // chunk)) for lo, hi in spans]
+    popc = np.vectorize(lambda w: bin(int(w)).count("1"))
+    tile_counts = np.array([[int(popc(words[r, c0:c1]).sum())
+                             for c0, c1 in spans_c] for r in range(b)],
+                           dtype=np.int64).reshape(b, plan.tiles)
+    idx = np.zeros((b, capacity), np.int64)
+    writes = np.zeros((b, capacity), np.int64)
+    counts = tile_counts.sum(1)
+    for r in range(b):
+        for t, (c0, c1) in enumerate(spans_c):
+            before, total = tile_counts[r, :t].sum(), counts[r]
+            lo, hi = plan.pad_range(t)
+            idx[r, max(lo, total):hi] = -1
+            writes[r, max(lo, total):hi] += 1
+            if before >= capacity:
+                continue
+            bit = (words[r, c0:c1, None, :] >> lane[None, :, None].astype(
+                np.uint32)) & 1
+            c, l, j = np.nonzero(bit)
+            cols = chunk * (c0 + c) + 4 * l + j
+            slots = before + np.arange(len(cols))
+            keep = slots < capacity
+            idx[r, slots[keep]] = cols[keep]
+            writes[r, slots[keep]] += 1
+    assert (writes == 1).all()
+    return idx.astype(np.int32), counts.astype(np.int32)
+
+
+class TestPencPlan:
+    """The host side of the two-pass penc_compact kernels
+    (penc_compact.penc_plan) and a plain emulation of both passes on it."""
+
+    @pytest.mark.parametrize("b,n,capacity", PENC_PLANS)
+    def test_tiles_cover_the_row_once_in_order(self, b, n, capacity):
+        plan = penc_kernel.penc_plan(b, n, capacity)
+        assert plan.tile % penc_kernel.ROUND == 0
+        assert 1 <= plan.tiles <= penc_kernel.MAX_TILES
+        spans = [plan.tile_range(t) for t in range(plan.tiles)]
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
+        assert all(hi > lo for lo, hi in spans) or n == 0
+        assert b * plan.tiles < 2 ** 31
+
+    @pytest.mark.parametrize("b,n,capacity", PENC_PLANS)
+    def test_pad_ranges_partition_the_capacity(self, b, n, capacity):
+        plan = penc_kernel.penc_plan(b, n, capacity)
+        spans = [plan.pad_range(t) for t in range(plan.tiles)]
+        assert spans[0][0] == 0 and spans[-1][1] == capacity
+        assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
+        assert all(hi >= lo for lo, hi in spans)
+
+    @pytest.mark.parametrize("b,n,capacity", PENC_PLANS)
+    def test_one_launch_and_workspace_sizes(self, b, n, capacity):
+        plan = penc_kernel.penc_plan(b, n, capacity)
+        assert plan.one_launch == (n <= penc_kernel.ROUND)
+        ws = (penc_kernel.workspace(plan, torch.device("meta"))
+              if b * n < 2 ** 31 else None)
+        if plan.one_launch:
+            assert plan.mask_words == plan.count_words == 0 and ws is None
+        else:
+            assert plan.mask_words == b * 4 * -(-n // penc_kernel.CHUNK)
+            assert plan.count_words == b * plan.tiles
+            assert ws is None or (ws.dtype == torch.int32 and ws.numel() ==
+                                  plan.mask_words + plan.count_words)
+
+    def test_net5_inputs_fill_the_card(self):
+        """conv2's input runs two waves of 1,024 blocks' worth over 132
+        SMs; conv1's and fc1's 512 blocks; fc2's and fc3's one launch."""
+        assert penc_kernel.penc_plan(64, 131072, 131072).tiles * 64 == 2048
+        assert penc_kernel.penc_plan(64, 32768, 100).tiles * 64 == 512
+        assert penc_kernel.penc_plan(64, 512, 512).one_launch
+        assert penc_kernel.penc_plan(64, 256, 256).one_launch
+
+    @pytest.mark.parametrize("shape,density", [
+        ((3, 3 * 4096 + 7), 0.3), ((2, 4097), 1.0), ((4, 8192 + 31), 0.05),
+        ((3, 33), 0.5), ((2, 4095), 0.0)])
+    @pytest.mark.parametrize("extra", [0, 1, 100, "n", "n+5", "2n"])
+    def test_two_passes_equal_the_plain_version(self, shape, density, extra):
+        n = shape[1]
+        capacity = {"n": n, "n+5": n + 5, "2n": 2 * n}.get(extra, extra)
+        bits = _spikes(np.random.default_rng(n), shape, density)
+        idx, cnt = _penc_emulated(bits, capacity)
+        want_idx, want_cnt = ref.penc_compact_ref(_t(bits), capacity)
+        np.testing.assert_array_equal(idx, want_idx.numpy())
+        np.testing.assert_array_equal(cnt, want_cnt.numpy())
+
+    @pytest.mark.parametrize("shape,capacity", [((3, 3 * 4096 + 7), 100),
+                                                ((2, 8192 + 31), 1),
+                                                ((5, 33), 40)])
+    def test_two_passes_equal_jax(self, shape, capacity):
+        bits = _spikes(np.random.default_rng(5), shape, 0.2)
+        idx, cnt = _penc_emulated(bits, capacity)
+        jidx, jcnt = jops.penc_compact(jnp.asarray(bits), capacity=capacity)
+        np.testing.assert_array_equal(idx, np.asarray(jidx))
+        np.testing.assert_array_equal(cnt, np.asarray(jcnt))
+
+    def test_tiles_of_several_rounds_equal_the_plain_version(self):
+        """A row of more than MAX_TILES rounds takes tiles of two rounds."""
+        n = (penc_kernel.MAX_TILES + 1) * penc_kernel.ROUND + 5
+        assert penc_kernel.penc_plan(1, n, 100).tile == 2 * penc_kernel.ROUND
+        bits = _spikes(np.random.default_rng(8), (1, n), 0.01)
+        for capacity in (100, n):
+            idx, cnt = _penc_emulated(bits, capacity)
+            want_idx, want_cnt = ref.penc_compact_ref(_t(bits), capacity)
+            np.testing.assert_array_equal(idx, want_idx.numpy())
+            np.testing.assert_array_equal(cnt, want_cnt.numpy())
+
+    @pytest.mark.parametrize("cut", [4096, 4096 - 1, 4096 + 1, 2 * 4096])
+    def test_count_reaching_capacity_at_a_tile_boundary(self, cut):
+        """Every entry fires: the cut falls exactly on the end of tile 0
+        (capacity 4096), just inside it, just past it, or on tile 1's end;
+        tiles from the one holding slot `capacity` on write no address."""
+        bits = np.ones((2, 3 * 4096 + 7), np.float32)
+        bits[1, ::3] = 0.0
+        idx, cnt = _penc_emulated(bits, cut)
+        want_idx, want_cnt = ref.penc_compact_ref(_t(bits), cut)
+        np.testing.assert_array_equal(idx, want_idx.numpy())
+        np.testing.assert_array_equal(cnt, want_cnt.numpy())
+
+    def test_values_other_than_zero_and_one(self):
+        """> 0 fires: 0.5, 2 and inf do; 0, -0.0, -1 and NaN do not."""
+        rng = np.random.default_rng(6)
+        vals = np.array([0.0, -0.0, -1.0, np.nan, 0.5, 2.0, np.inf],
+                        np.float32)
+        bits = vals[rng.integers(0, len(vals), (3, 4096 + 129))]
+        idx, cnt = _penc_emulated(bits, 4096 + 129)
+        want_idx, want_cnt = ref.penc_compact_ref(_t(bits), 4096 + 129)
+        np.testing.assert_array_equal(idx, want_idx.numpy())
+        np.testing.assert_array_equal(cnt, want_cnt.numpy())
+
+
 class TestSpikeConv:
     @pytest.mark.parametrize("stride", [1, 2])
     @pytest.mark.parametrize("padding", ["SAME", "VALID"])
