@@ -16,7 +16,10 @@ script then exits non-zero and never prints its result line):
    and the conv on inputs other than spikes.  Weights on the 2^-12 grid
    make every partial sum exact in fp32, so the results must be equal;
    normal weights are checked to a stated tolerance, and the dense and conv
-   kernels must give the same bytes on two calls.
+   kernels must give the same bytes on two calls.  Then the cell axis: each
+   forward kernel on slabs of 3 cells with their own weights and spike
+   densities (a B that is not a multiple of 32 among them), one launch a
+   slab, each cell equal to its solo launch and to the plain version.
 3. The same for the backward kernels (the dense layers' dW and dS, the
    conv layers' dW on their input spikes and their dS in conv form, at
    every conv geometry of phase 2), with cotangents on a coarse grid, each
@@ -24,7 +27,8 @@ script then exits non-zero and never prints its result line):
    tile (dense dS) and a cotangent pixel (conv dS) of +x and -x must not be
    skipped; on normal operands the conv dS must equal col2im of the card's
    dense dS bit for bit; one ``spike_conv_train`` forward and backward on
-   the card equal to the CPU's.  Then the kernel API's own kernels:
+   the card equal to the CPU's; the cell axis of every backward kernel as
+   in phase 2.  Then the kernel API's own kernels:
    ``lif_step`` (fp32 and bf16, both resets) on ragged shapes and on net-5's
    membrane shapes, and ``penc_compact`` on ragged shapes at densities 0 ..
    100%, each equal to its plain version bit for bit.
@@ -59,6 +63,17 @@ script then exits non-zero and never prints its result line):
    dvs-conv cells T = 8, 12, 16; a budgeted ``dse.explore`` of a joint
    mnist-mlp space (EvolutionarySearch, ``train_budget=2``) and its repeat
    on the same root, which must be all hits with an equal frontier.
+   Then many cells at once (6c): 16 dvs-conv cells (seeds 0-15, the
+   registry's recipe at T = 8) trained as one slab
+   (``cellstack.resolve_stacked``), with the launch counters set to 0
+   before and read after: the slab must launch each kernel as often as one
+   solo cell does; solo misses of seeds 0 and 1, equal to the slab's cells
+   bit for bit; ``resolve_cells(workers=2)`` of seeds 16 and 17 in two
+   spawned processes on the card, equal to their solo misses; ``coexplore``
+   of dvs-conv and its ``data_seed=17`` shard with ``stack=True`` against
+   the serial run, with equal frontiers; the slab's and a solo miss's wall
+   time and cells a minute, the slab's peak memory, and a profile of one
+   slab step against one solo step (device busy share, kernels a step).
 7. Time each kernel, its plain version and one library call at the main
    path's shapes on the main path's own traffic (the backward kernels on
    the operands of phase 5's middle time step), next to the least time
@@ -75,6 +90,7 @@ The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
+import dataclasses
 import importlib
 import json
 import math
@@ -150,6 +166,18 @@ CONV_CASES = ([((3, 17, 15, 4), 33, 3, st, pad) for st in (1, 2)
                  ((BATCH, 16, 16, 8), 16, 3, 1, "SAME"),
                  ((BATCH, 128, 128, 2), 32, 3, 1, "SAME"),
                  ((BATCH, 64, 64, 32), 32, 3, 1, "SAME")])
+# The cell axis of kernels 1-5 (a DSE slab): CELLS cells of one shape, each
+# with its own weights and its own spike density, held cell by cell against
+# the solo launch and the plain version.  The dense shapes: a B that is not
+# a multiple of 32 (no flag tile may mix two cells), net-5's ragged split
+# path, and the dvs-conv cell's fc and output layers.
+CELLS = 3
+CELL_DENSITIES = (0.0, 0.05, 0.3)
+CELL_DENSE = [(45, 1000, 130), (70, 32 * 32 * 32 + 37, 130),
+              (BATCH, 1024, 64), (BATCH, 64, 16)]
+# The slab of phase 6c: the registry's dvs-conv cells at T = CELL_STEPS,
+# seeds 0 .. SLAB_CELLS-1, one slab (cellstack.MAX_STACK).
+SLAB_CELLS = 16
 # The ECU's priority-encoder chunk (validate.penc_compress's default).
 PENC_CHUNK = 100
 BACKWARD = ("spike_gemm_dw", "spike_gemm_ds")
@@ -341,6 +369,7 @@ def main() -> int:
                                   workloads)
     from repro_torch.core.accelerator import arch
     from repro_torch.data import synthetic
+    from repro_torch.distributed import cellfarm, cellstack
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import spike_conv as conv_kernel
     from repro_torch.kernels import spike_gemm_bwd as bwd_kernel
@@ -403,6 +432,41 @@ def main() -> int:
                                      f"version on {what}: max |diff| {diff}")
             errs[name] = max(errs[name], (g - w).abs().max().item())
 
+    def cell_stack(make):
+        """A slab of CELLS cells: ``make(density)`` for each cell's
+        density (its own weights, where ``make`` ignores the density)."""
+        return torch.stack([make(d) for d in CELL_DENSITIES])
+
+    def one_launch(module, counter, call, what):
+        """``call()``, which must launch its kernel once for the slab."""
+        before = getattr(module, counter)
+        got = call()
+        torch.cuda.synchronize()
+        if getattr(module, counter) != before + 1:
+            raise AssertionError(f"{what}: {getattr(module, counter) - before}"
+                                 f" launches for one slab, expected 1")
+        return got
+
+    def same_cell(a, b, what):
+        """Two cache artifacts with equal params, counts and accuracy."""
+        if not (a.accuracy == b.accuracy
+                and len(a.counts) == len(b.counts)
+                and all(np.array_equal(x, y)
+                        for x, y in zip(a.counts, b.counts))
+                and all(np.array_equal(p[k], q[k])
+                        for p, q in zip(a.params, b.params) for k in p)):
+            raise AssertionError(f"{what}: the artifacts differ")
+
+    def hold_cells(name, got, solo, plain, what):
+        """Each cell of the slab outputs ``got`` equal to its solo launch
+        ``solo(c)`` and to the plain version ``plain(c)`` bit for bit."""
+        for c in range(CELLS):
+            mine = [g[c] for g in got]
+            hold(name, mine, solo(c), f"{what}, cell {c} against its solo "
+                                      f"launch")
+            hold(name, mine, plain(c), f"{what}, cell {c} against the plain "
+                                       f"version")
+
     net5_dense = [(BATCH, 32 * 32 * 32, 512), (BATCH, 512, 256),
                   (BATCH, 256, 11)]
     # a ragged large K: the split path with a short last slab, K and N not
@@ -454,6 +518,49 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"{n_cases} cases equal to the plain versions on 2^-"
             f"{GRID_BITS}-grid weights; max |diff| {errs}")
+        n_cases = 0
+        for m, k, n in CELL_DENSE:
+            w = cell_stack(lambda _: on_grid(torch.randn(
+                k, n, generator=gen, device=dev) / math.sqrt(k) * 2))
+            b = cell_stack(lambda _: on_grid(torch.randn(
+                n, generator=gen, device=dev) * 0.1))
+            u0 = torch.randn(CELLS, m, n, generator=gen, device=dev)
+            s0 = spikes((CELLS, m, n), 0.3)
+            s = cell_stack(lambda d: spikes((m, k), d))
+            what = f"{CELLS} cells of S{(m, k)} W{(k, n)}"
+            got = one_launch(gemm_kernel, "launches",
+                             lambda: ops.spike_gemm(s, w), what)
+            hold_cells("spike_gemm", [got], lambda c: [
+                ops.spike_gemm(s[c], w[c])], lambda c: [
+                ref.spike_gemm_ref(s[c], w[c])], what)
+            for reset in ("subtract", "zero"):
+                kw = dict(beta=0.95, threshold=1.0, reset_mechanism=reset)
+                got = one_launch(fused_kernel, "launches",
+                                 lambda: ops.spike_gemm_lif_step(
+                                     s, w, b, u0, s0, **kw), what)
+                hold_cells("spike_gemm_lif", got, lambda c: list(
+                    ops.spike_gemm_lif_step(s[c], w[c], b[c], u0[c], s0[c],
+                                            **kw)), lambda c: list(
+                    ref.spike_gemm_lif_ref(s[c], w[c], b[c], u0[c], s0[c],
+                                           **kw)), f"{what} {reset}")
+            n_cases += 3
+        for shape, feats, k, stride, padding in CONV_CASES[:-2]:
+            conv = dict(stride=stride, padding=padding)
+            w = cell_stack(lambda _: on_grid(torch.randn(
+                k, k, shape[-1], feats, generator=gen, device=dev)
+                / math.sqrt(k * k * shape[-1]) * 2))
+            x = cell_stack(lambda d: spikes(shape, d))
+            what = f"{CELLS} cells of x{shape} {k}x{k}x{feats} {conv}"
+            got = one_launch(conv_kernel, "launches",
+                             lambda: ops.spike_conv(x, w, **conv), what)
+            hold_cells("spike_conv", [got], lambda c: [
+                ops.spike_conv(x[c], w[c], **conv)], lambda c: [
+                ref.spike_conv_ref(x[c], w[c], **conv)], what)
+            n_cases += 1
+        torch.cuda.synchronize()
+        log(f"{n_cases} slabs of {CELLS} cells (densities {CELL_DENSITIES}, "
+            f"each cell its own weights), one launch each: every cell "
+            f"equal to its solo launch and to the plain version")
         # the split kernels add their partials in a fixed order: two calls
         # on normal weights give the same bytes
         for m, k, n in (net5_dense[0], ragged_split):
@@ -590,6 +697,57 @@ def main() -> int:
         log(f"{n_cases} cases equal to the plain versions on grid operands "
             f"(each twice, the same bytes both times); max |diff| "
             f"{ {k: errs[k] for k in BACKWARD} }")
+        n_cases = 0
+        for m, k, n in CELL_DENSE + [net5_bwd["fc1"], (5, 33, 7)]:
+            w = cell_stack(lambda _: on_grid(torch.randn(
+                k, n, generator=gen, device=dev) / math.sqrt(k) * 2))
+            s = cell_stack(lambda d: spikes((m, k), d))
+            g = cell_stack(lambda d: cotangent((m, n), 1.0 - d))
+            what = f"{CELLS} cells of S{(m, k)} g{(m, n)} W{(k, n)}"
+            dw = one_launch(bwd_kernel, "dw_launches",
+                            lambda: ops.spike_gemm_bwd_dw(s, g), what)
+            ds = one_launch(bwd_kernel, "ds_launches",
+                            lambda: ops.spike_gemm_bwd_ds(g, w), what)
+            hold_cells("spike_gemm_dw", [dw], lambda c: [
+                ops.spike_gemm_bwd_dw(s[c], g[c])], lambda c: [
+                ref.spike_gemm_dw_ref(s[c], g[c])], what)
+            hold_cells("spike_gemm_ds", [ds], lambda c: [
+                ops.spike_gemm_bwd_ds(g[c], w[c])], lambda c: [
+                ref.spike_gemm_ds_ref(g[c], w[c])], what)
+            n_cases += 2
+        for shape, feats, k, stride, padding in CONV_CASES[:-2]:
+            conv = dict(stride=stride, padding=padding)
+            w = cell_stack(lambda _: on_grid(torch.randn(
+                k, k, shape[-1], feats, generator=gen, device=dev)
+                / math.sqrt(k * k) * 2))
+            x = cell_stack(lambda d: spikes(shape, d))
+            oh, ow = ref.spike_conv_ref(
+                x[0, ..., :1], torch.zeros(k, k, 1, 1, device=dev),
+                **conv).shape[1:3]
+            g = cell_stack(lambda d: cotangent((shape[0], oh, ow, feats),
+                                               1.0 - d))
+            xs = (CELLS,) + tuple(shape)
+            what = f"{CELLS} cells of x{shape} {k}x{k}x{feats} {conv}"
+            dw = one_launch(bwd_kernel, "dw_launches",
+                            lambda: ops.spike_conv_bwd_dw(
+                                x, g, kernel_size=(k, k), **conv), what)
+            ds = one_launch(bwd_kernel, "ds_launches",
+                            lambda: ops.spike_conv_bwd_ds(g, w, xs, **conv),
+                            what)
+            hold_cells("spike_gemm_dw", [dw], lambda c: [
+                ops.spike_conv_bwd_dw(x[c], g[c], kernel_size=(k, k),
+                                      **conv)], lambda c: [
+                ref.spike_conv_dw_ref(x[c], g[c], k, k, **conv)],
+                f"conv dW {what}")
+            hold_cells("spike_gemm_ds", [ds], lambda c: [
+                ops.spike_conv_bwd_ds(g[c], w[c], tuple(shape), **conv)],
+                lambda c: [ref.spike_conv_ds_ref(g[c], w[c], tuple(shape),
+                                                 **conv)],
+                f"conv dS {what}")
+            n_cases += 2
+        torch.cuda.synchronize()
+        log(f"{n_cases} backward slabs of {CELLS} cells, one launch each: "
+            f"every cell equal to its solo launch and to the plain version")
         # one forward and backward of the conv's autograd Function on the
         # card and on the CPU, on grid operands
         for shape, feats, k, stride, padding in CONV_CASES[:5]:
@@ -1329,6 +1487,165 @@ def main() -> int:
                 f"summary: {again.summary}")
             study["explore_summary"] = first.summary
         report["study"] = study
+
+    # ---- 6c. many cells at once: a slab, the farm, a stacked study -------
+    with Phase(f"{SLAB_CELLS} dvs-conv cells as one slab, the farm, and a "
+               f"stacked coexplore"):
+        slab = {}
+        dvs = workloads.get("dvs-conv")
+        asn = {"num_steps": CELL_STEPS, "population": 1.0}
+        slab_seeds = list(range(SLAB_CELLS))
+        farm_seeds = [SLAB_CELLS, SLAB_CELLS + 1]
+        with tempfile.TemporaryDirectory() as root:
+            stack_cache = workloads.TraceCache(root=f"{root}/slab")
+            solo_cache = workloads.TraceCache(root=f"{root}/solo")
+            jobs = [cellfarm.CellJob(dvs, asn, seed=s, quant_bits=(8,))
+                    for s in slab_seeds]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            parts = {}
+            outcomes = cellstack.resolve_stacked(jobs, stack_cache.root,
+                                                 cache=stack_cache,
+                                                 stats=parts)
+            torch.cuda.synchronize()
+            slab_s = time.perf_counter() - t0
+            slab_launches = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            want = dvs_cell_launches(dvs, CELL_STEPS)
+            log(f"  slab of {SLAB_CELLS}: {slab_s:.2f} s "
+                f"({SLAB_CELLS / slab_s * 60:.1f} cells a minute), peak "
+                f"memory {peak / 2**30:.2f} GiB; launches {slab_launches}")
+            log("  where the slab's time goes (host clock, s): "
+                + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()
+                            if k.endswith("seconds")))
+            if not all(o.trained and o.error is None for o in outcomes):
+                raise AssertionError(f"the slab did not train every cell: "
+                                     f"{outcomes}")
+            if slab_launches != want:
+                raise AssertionError(f"the slab launched {slab_launches}, "
+                                     f"expected one solo cell's {want}")
+            solo_s = []
+            for seed in slab_seeds[:2] + farm_seeds:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solo = solo_cache.resolve(dvs, asn, seed=seed,
+                                          quant_bits=(8,))
+                torch.cuda.synchronize()
+                solo_s.append(time.perf_counter() - t0)
+                if solo.cache_hit:
+                    raise AssertionError("the solo root already held it")
+                if seed in slab_seeds:
+                    same_cell(stack_cache.resolve(dvs, asn, seed=seed,
+                                                  quant_bits=(8,)),
+                              solo, f"slab cell {seed} against solo")
+            solo_miss = statistics.median(solo_s)
+            t0 = time.perf_counter()
+            dvs.make_data(CELL_STEPS)
+            slab["make_data_s"] = time.perf_counter() - t0
+            log(f"  dvs-conv's make_data: {slab['make_data_s']:.2f} s (a "
+                f"solo miss makes it twice: training, then the fixed-point "
+                f"accuracy)")
+            log(f"  solo misses {[round(s, 2) for s in solo_s]} s (median "
+                f"{solo_miss:.2f} s, {60 / solo_miss:.1f} cells a minute); "
+                f"slab cells 0 and 1 equal their solo runs bit for bit")
+            t0 = time.perf_counter()
+            try:
+                farmed = cellfarm.resolve_cells(
+                    [cellfarm.CellJob(dvs, asn, seed=s, quant_bits=(8,))
+                     for s in farm_seeds], f"{root}/farm", workers=2)
+            finally:
+                cellfarm.shutdown_pool()
+            farm_s = time.perf_counter() - t0
+            if not all(o.trained and o.error is None for o in farmed):
+                raise AssertionError(f"the farm failed: {farmed}")
+            farm_cache = workloads.TraceCache(root=f"{root}/farm")
+            for seed in farm_seeds:
+                same_cell(farm_cache.resolve(dvs, asn, seed=seed),
+                          solo_cache.resolve(dvs, asn, seed=seed),
+                          f"farmed cell {seed} against solo")
+            log(f"  resolve_cells(workers=2) of seeds {farm_seeds}: "
+                f"{farm_s:.2f} s, spawn included; equal to solo bit for "
+                f"bit")
+            slab.update(cells=SLAB_CELLS, slab_s=slab_s,
+                        slab_cells_per_minute=SLAB_CELLS / slab_s * 60,
+                        solo_miss_s=solo_s,
+                        solo_cells_per_minute=60 / solo_miss,
+                        peak_bytes=peak, launches=slab_launches,
+                        slab_parts=parts,
+                        farm_s=farm_s)
+
+            shard = dataclasses.replace(dvs, name="dvs-conv-shard17",
+                                        data_seed=17)
+            kw = dict(datasets=(dvs, shard), num_steps=(8,),
+                      population=(1.0,))
+            fronts = {}
+            for mode, extra in (("serial", {}), ("stacked", {"stack": True})):
+                cache = workloads.TraceCache(root=f"{root}/co-{mode}")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = dse.coexplore(cache=cache, **kw, **extra)
+                secs = time.perf_counter() - t0
+                fronts[mode] = res
+                log(f"  coexplore of dvs-conv and its data_seed=17 shard, "
+                    f"{mode}: {secs:.2f} s, {cache.misses} misses, "
+                    f"{cache.hits} hits, farmed {res.study.farmed_misses}")
+                slab[f"coexplore_{mode}_s"] = secs
+            if fronts["stacked"].study.farmed_misses != 2 or \
+                    fronts["stacked"].cache.misses != 0:
+                raise AssertionError("the stacked coexplore did not farm "
+                                     "both cells")
+            a, b = (fronts[m].frontier.columns for m in ("serial", "stacked"))
+            if a.keys() != b.keys() or not all(
+                    np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError("the stacked coexplore's frontier "
+                                     "differs from the serial one")
+            log(f"  equal frontiers ({len(fronts['serial'].frontier)} "
+                f"designs)")
+
+        # one training step of the slab against one solo step: device busy
+        # share and kernels a step, from the profiler
+        from torch.profiler import ProfilerActivity, profile
+        cfg_c = dvs.build(CELL_STEPS, 1.0)
+        tx = optim.adam(dvs.lr)
+        data_c = dvs.make_data(CELL_STEPS)
+        xb = torch.as_tensor(data_c.x_train[:dvs.batch_size], device=dev)
+        yb = torch.as_tensor(data_c.y_train[:dvs.batch_size], device=dev)
+        inits = [train_snn.init_cell(cfg_c, tx, s) for s in slab_seeds]
+        slab_p = cellstack.stack_params([i[0] for i in inits])
+        steps = {
+            "solo": (train_snn.make_train_step(cfg_c, tx), inits[0][0],
+                     inits[0][1], inits[0][2], xb, yb),
+            "slab": (train_snn.make_stacked_train_step(cfg_c, tx), slab_p,
+                     tx.init(slab_p), [i[2] for i in inits],
+                     xb.expand((SLAB_CELLS,) + tuple(xb.shape)).contiguous(),
+                     yb.expand(SLAB_CELLS, -1).contiguous())}
+        for name, (fn, p, st, g, x, y) in steps.items():
+            fn(p, st, g, x, y)                          # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(p, st, g, x, y)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn(p, st, g, x, y)
+                torch.cuda.synchronize()
+            kern = [e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.device_time_total for e in kern) / 1e3
+            slab[f"{name}_step"] = {
+                "wall_ms": wall * 1e3, "device_busy_ms": busy,
+                "busy_share": busy / (wall * 1e3) if kern else None,
+                "kernels": len(kern)}
+            log(f"  one {name} training step: {wall * 1e3:.1f} ms "
+                f"unprofiled, device busy {busy:.1f} ms "
+                + (f"({busy / (wall * 1e3):.0%})" if kern else
+                   "(the profiler recorded no device time: not measured)")
+                + f", {len(kern)} device kernels")
+        del steps, inits, slab_p
+        report["slab"] = slab
 
     # ---- 7. timing at the main path's shapes and traffic -----------------
     layers = dict(zip(names, zip(specs, [p for p in params if p])))

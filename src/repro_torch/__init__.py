@@ -2,9 +2,10 @@
 hand-written CUDA kernels for Hopper.
 
 Subpackages mirror the JAX package ``repro`` module for module:
-  core      spiking model, accelerator model, DSE, workload registry
-  kernels   CUDA kernels (sm_90a), their ctypes bindings and plain versions
-  data      synthetic datasets
+  core         spiking model, accelerator model, DSE, workload registry
+  kernels      CUDA kernels (sm_90a), ctypes bindings, plain versions
+  data         synthetic datasets
+  distributed  many cells at once: the process farm and stacked slabs
 and ``convert`` carries parameters between the two packages as NumPy.
 Public entry points run on ``device="cuda"`` unless told ``device="cpu"``.
 """

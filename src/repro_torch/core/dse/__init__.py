@@ -13,7 +13,8 @@ paper's study loop over model cells trained in torch.
 * ``study``      — ``explore(space, ...) -> Study``: chunked evaluation,
                    the Pareto merge, model cells resolved through the torch
                    ``workloads.TraceCache`` with a training budget in cache
-                   misses, checkpoint/resume.  Cells train in process.
+                   misses, checkpoint/resume, and the cell farm
+                   (``workers=N``, ``stack=True``).
 * ``engine``     — ``search``/``SearchResult``/``auto_select``, thin
                    wrappers over ``explore`` for hardware-only spaces.
 * ``coexplore``  — the cell-enumerating co-exploration front end, a thin
@@ -23,8 +24,8 @@ paper's study loop over model cells trained in torch.
                    the engine.
 
 Each module is a copy of ``repro.core.dse``'s with its imports changed;
-the one difference is that the cell farm (``explore(workers>=2)``,
-``workers="cluster"``, ``stack=True``) is not ported and raises.
+the one difference is that ``workers="cluster"`` (the JAX package's
+multi-host fleet) is not ported and raises ``NotImplementedError``.
 """
 from repro_torch.core.dse.coexplore import (CO_METRICS,
                                             DEFAULT_CO_OBJECTIVES,

@@ -31,9 +31,9 @@ The loop itself lives in ``dse.study`` since the ask/tell redesign; this
 wrapper adapts the returned ``Study`` to the classic ``CoExploreResult``
 and forwards the new knobs: ``strategy=`` (a non-grid strategy searches the
 *joint* digit space instead of enumerating cells — requires a declared
-space) and ``train_budget=k`` (at most k cache misses).  Cells train in
-process: ``workers >= 2`` and ``stack=True`` raise ``NotImplementedError``
-until the cell farm is ported.
+space), ``train_budget=k`` (at most k cache misses), ``workers=N``
+(parallel cell farming in spawned processes) and ``stack=True`` (slabs of
+same-signature cells, ``repro_torch.distributed.cellstack``).
 """
 from __future__ import annotations
 
@@ -119,10 +119,11 @@ def coexplore(workload: Union[str, Workload, None] = None,
 
     ``strategy`` defaults to exhaustive cell enumeration (``GridSearch``);
     pass ``RandomSearch``/``EvolutionarySearch`` (with a declared joint
-    space) plus ``train_budget=k`` for the NAS-style budgeted loop; both
-    are forwarded to ``dse.explore``, as are ``workers`` and ``stack``,
-    which it refuses beyond in-process training (the cell farm and the
-    stacked trainer are not ported yet).
+    space) plus ``train_budget=k`` for the NAS-style budgeted loop,
+    ``workers=N`` to farm cell training across processes, and
+    ``stack=True`` to train same-signature cells as one slab
+    (``repro_torch.distributed.cellstack``) — all forwarded to
+    ``dse.explore``.
     """
     study = explore(
         space, workload=workload, datasets=datasets, num_steps=num_steps,

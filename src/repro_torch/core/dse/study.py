@@ -32,13 +32,15 @@ Three modes, picked from the space and strategy:
 arrays; a ``study.json`` sidecar holds strategy RNG state, cursors,
 evaluated count, budget, and cell records) and resumable via
 ``explore(..., checkpoint_dir=..., resume=True)`` — cells never retrain on
-resume because the trace cache is content-addressed.
+resume because the trace cache is content-addressed.  ``workers=N`` shards
+pending cell training across spawned processes and ``stack=True`` trains
+same-signature cells as one slab (``repro_torch.distributed.cellfarm``,
+``cellstack``), safe because the cache publish is atomic.
 
-Cells train in this process, on the cache's device; the default cache is
-the port's own ``TraceCache()`` (root ``REPRO_TORCH_WORKLOAD_CACHE``, the
-card).  The JAX package's cell farm (``workers >= 2``,
-``workers="cluster"``, ``stack=True``) is not ported yet (ROADMAP §1 item
-4): those arguments raise ``NotImplementedError``.
+Cells train on the cache's device; the default cache is the port's own
+``TraceCache()`` (root ``REPRO_TORCH_WORKLOAD_CACHE``, the card).  The JAX
+package's multi-host fleet (``workers="cluster"``) is not ported yet and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ from repro_torch.core.dse.space import MODEL_AXES, SearchSpace, iter_cells
 from repro_torch.core.dse.strategies import GridSearch, Strategy
 from repro_torch.core.dse.table import CandidateTable
 from repro_torch.core.workloads import TraceCache, TrainingBudget, Workload
+from repro_torch.distributed import cellfarm
 
 DEFAULT_OBJECTIVES = ("cycles", "lut", "bram", "energy")
 DEFAULT_CO_OBJECTIVES = ("error", "cycles", "lut", "energy")
@@ -240,6 +243,8 @@ class Study(FrontierQueries):
                  model_axes: Optional[list[tuple]] = None,
                  cell_plan: Optional[list[tuple]] = None,
                  l_max: int = 0,
+                 workers: Union[int, str] = 0,
+                 stack: bool = False,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: Optional[int] = None):
         self.mode = mode
@@ -254,6 +259,8 @@ class Study(FrontierQueries):
         self.cache = cache
         self.budget = budget
         self.seed = seed
+        self.workers = workers
+        self.stack = stack
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self._resolve_wl = resolve_wl
@@ -266,9 +273,8 @@ class Study(FrontierQueries):
         self.rounds = 0
         self.cells: list[CellRecord] = []
         self.skipped: list[dict] = []
-        #: cells trained out of process: none here, since no cell farm is
-        #: ported; the field is kept (and restored from a checkpoint) so
-        #: that summaries and checkpoints have the JAX package's fields
+        #: cells trained by the farm or a slab (``workers``/``stack``),
+        #: published outside ``self.cache`` and charged here
         self.farmed_misses = 0
         #: bumped whenever the Pareto frontier actually changes — streaming
         #: consumers diff this across steps instead of comparing frontier
@@ -282,6 +288,7 @@ class Study(FrontierQueries):
         self._table: Optional[CandidateTable] = None
         self._cell_cursor = 0                   # cells mode
         self._live: dict[str, Optional[_LiveCell]] = {}   # joint mode
+        self._prefetched = False
         if mode in ("hardware", "joint"):
             strategy.bind(space, self.objectives)
 
@@ -391,6 +398,7 @@ class Study(FrontierQueries):
         # np.unique gives a deterministic (lexicographic) cell order, so the
         # budget spends identically across runs and worker counts
         uniq, inverse = np.unique(model_d, axis=0, return_inverse=True)
+        self._farm_chunk(uniq)
         for u, row in enumerate(uniq):
             cell = self._joint_cell(row)
             if cell is None:
@@ -491,8 +499,65 @@ class Study(FrontierQueries):
                          accuracy=artifact.accuracy,
                          quant_acc=dict(artifact.quant_acc))
 
+    @property
+    def _farming(self) -> bool:
+        """True when pending cells should resolve through the farm first: a
+        usable process pool (``workers >= 2``) or slabs (``stack``)."""
+        return self.stack or (isinstance(self.workers, int)
+                              and self.workers >= 2)
+
+    def _farm(self, jobs: list) -> None:
+        self._charge_farmed(cellfarm.resolve_cells(
+            jobs, self.cache.root, workers=self.workers, stack=self.stack,
+            device=self.cache.device))
+
+    def _farm_chunk(self, uniq_model_rows: np.ndarray) -> None:
+        """Train this chunk's unresolved, affordable cells across worker
+        processes, or as same-signature slabs with ``stack=True``, before
+        the serial resolution loop (joint mode)."""
+        if not self._farming:
+            return
+        jobs = []
+        afford = (self.budget.remaining if self.budget is not None
+                  else len(uniq_model_rows))
+        for row in uniq_model_rows:
+            if self._digit_key(row) in self._live:
+                continue
+            assignment = self._cell_assignment(row)
+            wl = (self._resolve_wl(assignment["dataset"])
+                  if "dataset" in assignment else self._resolve_wl(None))
+            cell_asn = {"num_steps": assignment["num_steps"],
+                        "population": assignment.get("population", 1.0)}
+            if self.cache.contains(wl, cell_asn, seed=self.seed):
+                continue
+            if len(jobs) >= afford:
+                break
+            sub = self.space.hardware_subspace(
+                arch.from_snn_config(wl.build(
+                    int(cell_asn["num_steps"]), cell_asn["population"])),
+                dedup=False)
+            jobs.append(cellfarm.CellJob(
+                workload=wl, assignment=cell_asn, seed=self.seed,
+                quant_bits=tuple(_bits_values(sub))))
+        self._farm(jobs)
+
+    def _charge_farmed(self, outcomes: list) -> None:
+        for out in outcomes:
+            if out.error is not None:
+                # the farm gave up on this cell after bounded retries
+                # (cellfarm.CellOutcome.error); nothing was published and
+                # nothing is charged: the serial resolution path trains it
+                # in-process (or skips it for budget) instead of the whole
+                # study dying on one bad worker
+                continue
+            if out.trained:
+                self.farmed_misses += 1
+                if self.budget is not None:
+                    self.budget.charge()
+
     # ---- cells (cell-major grid) mode -------------------------------------
     def _step_cells(self) -> bool:
+        self._prefetch_cells()
         while self._cell_cursor < len(self._cell_plan):
             cell, wl, snn_cfg, accel, sub = \
                 self._cell_plan[self._cell_cursor]
@@ -536,6 +601,29 @@ class Study(FrontierQueries):
             live.record.n_evaluated += len(digits)
             inner.tell(digits, self._objective_matrix(chunk))
         self.cells.append(live.record)
+
+    def _prefetch_cells(self) -> None:
+        """Farm the cell plan's pending training across worker processes,
+        or as slabs with ``stack=True`` (cells mode); afterwards every
+        prefetched cell resolves as a hit."""
+        if self._prefetched or not self._farming:
+            return
+        self._prefetched = True
+        jobs = []
+        afford = (self.budget.remaining if self.budget is not None
+                  else len(self._cell_plan))
+        for cell, wl, _snn_cfg, _accel, sub in \
+                self._cell_plan[self._cell_cursor:]:
+            cell_asn = {"num_steps": int(cell["num_steps"]),
+                        "population": float(cell.get("population", 1.0))}
+            if self.cache.contains(wl, cell_asn, seed=self.seed):
+                continue
+            if len(jobs) >= afford:
+                break
+            jobs.append(cellfarm.CellJob(
+                workload=wl, assignment=cell_asn, seed=self.seed,
+                quant_bits=tuple(_bits_values(sub))))
+        self._farm(jobs)
 
     # ---- checkpoint / resume ----------------------------------------------
     def _signature(self) -> str:
@@ -718,11 +806,14 @@ def explore(space: Optional[SearchSpace] = None, *,
     ``checkpoint_dir`` + ``checkpoint_every=n`` checkpoint the study every n
     steps; ``resume=True`` restores from ``checkpoint_dir`` and continues.
     ``cache`` defaults to ``TraceCache()``: the port's own root, cells
-    trained on the card.  Cells train in this process: ``workers`` 0 or 1;
-    ``workers >= 2``, ``workers="cluster"`` and ``stack=True`` (the JAX
-    package's cell farm, fleet and stacked trainer) raise
-    ``NotImplementedError`` until they are ported (ROADMAP §1 item 4).
-    ``run=False`` returns the un-run study for manual ``step()``-ing.
+    trained on the card.  ``workers=N`` trains pending cells across N
+    spawned processes on the cache's device; ``stack=True`` prefers
+    training same-signature cells as one slab over farming them
+    (``repro_torch.distributed.cellstack``: published cells are bit for bit
+    the solo-trained ones either way).  ``workers="cluster"`` (the JAX
+    package's multi-host fleet) raises ``NotImplementedError``: the fleet
+    is the port's next slice.  ``run=False`` returns the un-run study for
+    manual ``step()``-ing.
     """
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
@@ -744,19 +835,20 @@ def explore(space: Optional[SearchSpace] = None, *,
                 or num_steps is not None or population is not None
                 or (space is not None and bool(space.model_axes)))
     if is_joint:
-        if stack or workers == "cluster" or workers >= 2:
+        if workers == "cluster":
             raise NotImplementedError(
-                f"workers={workers!r}, stack={stack!r}: the cell farm, the "
-                f"fleet and the stacked trainer are not ported yet (ROADMAP "
-                f"§1 item 4); torch studies train their cells in process "
-                f"(workers 0 or 1, stack=False)")
+                "workers='cluster' farms cells over the multi-host fleet "
+                "(the JAX package's distributed/fleet.py), which the port "
+                "does not have yet: it is the next slice (ROADMAP §1); use "
+                "workers=N or stack=True")
         study = _build_joint(
             space, workload=workload, datasets=datasets, num_steps=num_steps,
             population=population, hw_space=hw_space, max_lhr=max_lhr,
             weight_bits=weight_bits, cache=cache, seed=seed,
             train_budget=train_budget, strategy=strategy,
             objectives=objectives, chunk_size=chunk_size, keep_all=keep_all,
-            lib=lib, checkpoint_dir=checkpoint_dir,
+            lib=lib, workers=workers, stack=stack,
+            checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every)
     else:
         ignored = [name for name, val, default in (
@@ -808,8 +900,8 @@ def _build_hardware(space, *, config, counts, strategy, objectives,
 
 def _build_joint(space, *, workload, datasets, num_steps, population,
                  hw_space, max_lhr, weight_bits, cache, seed, train_budget,
-                 strategy, objectives, chunk_size, keep_all, lib,
-                 checkpoint_dir, checkpoint_every) -> Study:
+                 strategy, objectives, chunk_size, keep_all, lib, workers,
+                 stack, checkpoint_dir, checkpoint_every) -> Study:
     objectives = tuple(objectives) if objectives is not None \
         else DEFAULT_CO_OBJECTIVES
     for obj in objectives:
@@ -897,8 +989,8 @@ def _build_joint(space, *, workload, datasets, num_steps, population,
                      objectives=objectives, chunk_size=chunk_size,
                      keep_all=keep_all, lib=lib, cache=cache,
                      budget=train_budget, seed=seed, resolve_wl=resolve_wl,
-                     model_axes=model_axes, l_max=l_max,
-                     checkpoint_dir=checkpoint_dir,
+                     model_axes=model_axes, l_max=l_max, workers=workers,
+                     stack=stack, checkpoint_dir=checkpoint_dir,
                      checkpoint_every=checkpoint_every)
 
     # cells mode: materialize every cell's topology and hardware subspace
@@ -930,8 +1022,8 @@ def _build_joint(space, *, workload, datasets, num_steps, population,
                  objectives=objectives, chunk_size=chunk_size,
                  keep_all=keep_all, lib=lib, cache=cache, budget=train_budget,
                  seed=seed, resolve_wl=resolve_wl, model_axes=model_axes,
-                 cell_plan=cell_plan, l_max=l_max,
-                 checkpoint_dir=checkpoint_dir,
+                 cell_plan=cell_plan, l_max=l_max, workers=workers,
+                 stack=stack, checkpoint_dir=checkpoint_dir,
                  checkpoint_every=checkpoint_every)
 
 

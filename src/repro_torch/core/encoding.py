@@ -12,13 +12,25 @@ import torch
 import torch.nn.functional as F
 
 
+def rate_uniforms(generator: torch.Generator, shape: tuple[int, ...],
+                  num_steps: int, device: torch.device) -> torch.Tensor:
+    """The (T, *shape) uniforms of a rate code, drawn from ``generator``
+    (on ``device``)."""
+    return torch.rand((num_steps,) + tuple(shape), generator=generator,
+                      device=device, dtype=torch.float32)
+
+
+def rate_code(u: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Spikes ``u < x`` of (T, B, ...) uniforms and (B, ...) intensities."""
+    return (u < x).to(torch.float32)
+
+
 def rate_encode(generator: torch.Generator, x: torch.Tensor,
                 num_steps: int) -> torch.Tensor:
     """Bernoulli rate code: ``x`` in [0, 1], shape (B, ...) -> (T, B, ...)
     spikes in {0, 1}.  ``generator`` lives on ``x``'s device."""
-    u = torch.rand((num_steps,) + tuple(x.shape), generator=generator,
-                   device=x.device, dtype=torch.float32)
-    return (u < x).to(torch.float32)
+    return rate_code(rate_uniforms(generator, x.shape, num_steps, x.device),
+                     x)
 
 
 def population_pool(spike_counts: torch.Tensor,

@@ -14,6 +14,16 @@ block-skip conv for Conv layers).  All three give the same spikes, so the
 default is the kernel path.  Every path is differentiable: on the kernel
 backends the layers are ``kernels.ops``' autograd Functions, whose backward
 runs the dW and dS kernels.
+
+A slab of cells.  ``step``, ``apply`` and the trace functions also run C
+cells of one topology at once (``distributed/cellstack.py``): params whose
+every leaf leads with a cell axis (``cells_of``), spike trains (T, C, B,
+...), states (C, B, ...).  The kernels take the cell axis in one launch
+each; the OR-pool, the LIF update and the bias add are elementwise over
+(C·B, ...) views; the plain ``torch`` backend runs each cell's product at
+its solo shape; and a bias gradient is reduced per cell over the solo
+shape.  So each cell's spikes and gradients equal its solo run's bit for
+bit.
 """
 from __future__ import annotations
 
@@ -121,6 +131,16 @@ def _out_shape(spec: LayerSpec, in_shape: tuple[int, ...]) -> tuple[int, ...]:
     raise TypeError(spec)
 
 
+def cells_of(cfg: SNNConfig, params: Params) -> Optional[int]:
+    """C where ``params`` are a slab of C cells (every leaf with a leading
+    cell axis), None for one cell's."""
+    for spec, p in zip(cfg.layers, params):
+        if isinstance(spec, (Dense, Conv)):
+            rank = 2 if isinstance(spec, Dense) else 4
+            return int(p["w"].shape[0]) if p["w"].dim() == rank + 1 else None
+    return None
+
+
 def output_shapes(cfg: SNNConfig) -> list[tuple[int, ...]]:
     shapes, shape = [], cfg.input_shape
     for spec in cfg.layers:
@@ -166,9 +186,34 @@ def init_params(generator: torch.Generator, cfg: SNNConfig, *,
 # Forward
 # ---------------------------------------------------------------------------
 
+class _CellBias(torch.autograd.Function):
+    """``x + b`` for a slab: x (C, ..., N), b (C, N).  The add is
+    elementwise; the bias gradient is each cell's ``sum_to_size`` of its
+    slice, the reduction autograd runs for a solo broadcast bias, on the
+    solo shape (``ops.cell_sum_to``)."""
+
+    @staticmethod
+    def forward(ctx, x, b):
+        ctx.shape = tuple(b.shape[1:])
+        return x + b.reshape((b.shape[0],) + (1,) * (x.dim() - 2)
+                             + ctx.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_b = (kernel_ops.cell_sum_to(g, ctx.shape)
+               if ctx.needs_input_grad[1] else None)
+        return g, d_b
+
+
+def _add_bias(x: torch.Tensor, b: torch.Tensor,
+              cells: Optional[int]) -> torch.Tensor:
+    return x + b if cells is None else _CellBias.apply(x, b)
+
+
 def _layer_current(spec: LayerSpec, p: dict, s_in: torch.Tensor,
                    matmul_backend: str = DEFAULT_BACKEND,
-                   perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   perm: Optional[torch.Tensor] = None,
+                   cells: Optional[int] = None) -> torch.Tensor:
     """Synaptic current of one layer from its pre-synaptic spikes.
 
     Dense layers run the block-skip GEMM on ``"spike_gemm"`` and a plain
@@ -177,34 +222,46 @@ def _layer_current(spec: LayerSpec, p: dict, s_in: torch.Tensor,
     block-skip conv on both kernel backends.  Both kernels are the
     differentiable ``ops.spike_*_train``.  ``perm`` is an optional
     pre-synaptic permutation of a Dense layer, ``S[:, perm] @ W[perm, :]``,
-    which leaves the product unchanged.
+    which leaves the product unchanged.  ``cells``: C for a slab (operands
+    with a leading cell axis); the plain products then run per cell at the
+    solo shape.
     """
+    lead = 1 if cells is None else 2
     if isinstance(spec, Dense):
-        flat = s_in.reshape(s_in.shape[0], -1)
+        flat = s_in.reshape(s_in.shape[:lead] + (-1,))
         w = p["w"]
         if matmul_backend == "spike_gemm":
             if perm is not None:
                 flat, w = kernel_ops.apply_permutation(flat, w, perm)
-            return kernel_ops.spike_gemm_train(flat, w) + p["b"]
-        return flat @ w + p["b"]
-    if isinstance(spec, Conv):
-        if matmul_backend in ("spike_gemm", "spike_gemm_fused"):
-            out = kernel_ops.spike_conv_train(
-                s_in, p["w"], stride=spec.stride, padding=spec.padding)
+            cur = kernel_ops.spike_gemm_train(flat, w)
+        elif cells is None:
+            cur = flat @ w
         else:
-            out = kernel_ref.spike_conv_ref(s_in, p["w"], stride=spec.stride,
-                                            padding=spec.padding)
-        return out + p["b"]
+            cur = torch.stack([flat[c] @ w[c] for c in range(cells)])
+        return _add_bias(cur, p["b"], cells)
+    if isinstance(spec, Conv):
+        conv = dict(stride=spec.stride, padding=spec.padding)
+        if matmul_backend in ("spike_gemm", "spike_gemm_fused"):
+            out = kernel_ops.spike_conv_train(s_in, p["w"], **conv)
+        elif cells is None:
+            out = kernel_ref.spike_conv_ref(s_in, p["w"], **conv)
+        else:
+            out = torch.stack([kernel_ref.spike_conv_ref(s_in[c], p["w"][c],
+                                                         **conv)
+                               for c in range(cells)])
+        return _add_bias(out, p["b"], cells)
     raise TypeError(spec)
 
 
 def _fused_dense_step(spec: Dense, p: dict, s_in: torch.Tensor,
                       state: tuple[torch.Tensor, torch.Tensor],
-                      perm: Optional[torch.Tensor]
+                      perm: Optional[torch.Tensor],
+                      cells: Optional[int] = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Accumulate + bias + LIF update in one kernel launch
-    (``matmul_backend="spike_gemm_fused"``)."""
-    flat = s_in.reshape(s_in.shape[0], -1)
+    (``matmul_backend="spike_gemm_fused"``), for one cell or a slab."""
+    lead = 1 if cells is None else 2
+    flat = s_in.reshape(s_in.shape[:lead] + (-1,))
     w = p["w"]
     if perm is not None:
         flat, w = kernel_ops.apply_permutation(flat, w, perm)
@@ -256,18 +313,25 @@ class _OrPool(torch.autograd.Function):
 
 
 def _or_pool(s: torch.Tensor, window: int) -> torch.Tensor:
-    """Spike OR-pooling (non-overlapping max) over (B, H, W, C), VALID: a
-    ragged right or bottom edge is dropped."""
-    return _OrPool.apply(s, window)
+    """Spike OR-pooling (non-overlapping max) over (..., H, W, C), VALID: a
+    ragged right or bottom edge is dropped.  Leading dims (time, cells,
+    batch) fold into one image axis; every window is pooled on its own."""
+    flat = s.reshape((-1,) + tuple(s.shape[-3:]))
+    pooled = _OrPool.apply(flat, window)
+    return pooled.reshape(tuple(s.shape[:-3]) + tuple(pooled.shape[1:]))
 
 
 def init_states(cfg: SNNConfig, batch: int, device: torch.device,
-                dtype: torch.dtype = torch.float32) -> list:
+                dtype: torch.dtype = torch.float32,
+                cells: Optional[int] = None) -> list:
+    """Zero (u, s) of every spiking layer, (batch, ...) each, or
+    (cells, batch, ...) for a slab."""
+    lead = (batch,) if cells is None else (cells, batch)
     states, shape = [], cfg.input_shape
     for spec in cfg.layers:
         shape = _out_shape(spec, shape)
         if isinstance(spec, (Dense, Conv)):
-            z = torch.zeros((batch,) + shape, dtype=dtype, device=device)
+            z = torch.zeros(lead + shape, dtype=dtype, device=device)
             states.append((z, z))
         else:
             states.append(None)
@@ -282,19 +346,23 @@ def step(cfg: SNNConfig, params: Params, states: list, s_in: torch.Tensor,
 
     Returns (new_states, per-spiking-layer output spikes).  ``layer_perms``:
     optional per-layer pre-synaptic permutations aligned with
-    ``cfg.layers`` (``None`` entries for unpermuted layers).
+    ``cfg.layers`` (``None`` entries for unpermuted layers).  Slab params
+    (``cells_of``) take (C, B, ...) input spikes and states.
     """
     if layer_perms is not None and len(layer_perms) != len(cfg.layers):
         raise ValueError(f"layer_perms has {len(layer_perms)} entries for "
                          f"{len(cfg.layers)} layers")
+    cells = cells_of(cfg, params)
+    if cells is not None and layer_perms is not None:
+        raise ValueError("a slab of cells takes no layer_perms")
     perms = layer_perms or (None,) * len(cfg.layers)
     new_states, spikes = [], []
     x = s_in
     for spec, p, st, perm in zip(cfg.layers, params, states, perms):
         if isinstance(spec, Dense) and matmul_backend == "spike_gemm_fused":
-            u, s = _fused_dense_step(spec, p, x, st, perm)
+            u, s = _fused_dense_step(spec, p, x, st, perm, cells)
         elif isinstance(spec, (Dense, Conv)):
-            cur = _layer_current(spec, p, x, matmul_backend, perm)
+            cur = _layer_current(spec, p, x, matmul_backend, perm, cells)
             u, s = lif_step(st[0], st[1], cur, spec.lif)
         elif isinstance(spec, MaxPool):
             x = _or_pool(x, spec.window)
@@ -312,18 +380,21 @@ def apply(cfg: SNNConfig, params: Params, spike_input: torch.Tensor,
           return_all_layers: bool = False,
           matmul_backend: Optional[str] = None,
           layer_perms: Optional[Sequence] = None):
-    """Run the net over a (T, B, ...) input spike train.
+    """Run the net over a (T, B, ...) input spike train, or a slab's
+    (T, C, B, ...) with slab params.
 
-    Returns the output layer's (T, B, n_out) spike train; with
-    ``return_all_layers`` the list of every spiking layer's train.  The
-    trains are written into tensors allocated at the first step, so the
-    peak memory is one copy of them.  Under autograd each write is a
-    ``CopySlices`` node whose backward hands step t its slice of the
-    train's gradient.
+    Returns the output layer's (T, B, n_out) spike train ((T, C, B, n_out)
+    for a slab); with ``return_all_layers`` the list of every spiking
+    layer's train.  The trains are written into tensors allocated at the
+    first step, so the peak memory is one copy of them.  Under autograd
+    each write is a ``CopySlices`` node whose backward hands step t its
+    slice of the train's gradient.
     """
     backend = resolve_matmul_backend(matmul_backend)
-    num_steps, batch = spike_input.shape[:2]
-    states = init_states(cfg, batch, spike_input.device)
+    cells = cells_of(cfg, params)
+    num_steps = spike_input.shape[0]
+    batch = spike_input.shape[1 if cells is None else 2]
+    states = init_states(cfg, batch, spike_input.device, cells=cells)
     trains = None
     for t in range(num_steps):
         states, spikes = step(cfg, params, states, spike_input[t],
@@ -342,7 +413,8 @@ def layer_input_trains(cfg: SNNConfig, params: Params,
                        spike_input: torch.Tensor,
                        matmul_backend: Optional[str] = None
                        ) -> list[torch.Tensor]:
-    """The (T, B, ...) spike train **entering** each spiking layer.
+    """The (T, B, ...) spike train **entering** each spiking layer ((T, C,
+    B, ...) for a slab).
 
     Entry 0 is the encoded input train; pooling between layers is applied
     first, because the hardware's ECU sees the pooled train.
@@ -357,10 +429,7 @@ def layer_input_trains(cfg: SNNConfig, params: Params,
             train = all_spikes[spiking_idx]
             j = i + 1
             while j < len(layer_list) and isinstance(layer_list[j], MaxPool):
-                t, b = train.shape[:2]
-                pooled = _or_pool(train.reshape((t * b,) + train.shape[2:]),
-                                  layer_list[j].window)
-                train = pooled.reshape((t, b) + pooled.shape[1:])
+                train = _or_pool(train, layer_list[j].window)
                 j += 1
             trains.append(train)
             spiking_idx += 1
@@ -372,9 +441,10 @@ def spike_counts_per_layer(cfg: SNNConfig, params: Params,
                            spike_input: torch.Tensor,
                            matmul_backend: Optional[str] = None
                            ) -> list[torch.Tensor]:
-    """Per-layer **input** spike counts, (T, B) each: the traffic statistic
-    that drives the accelerator cycle model (entry 0 counts the encoded
-    input train)."""
+    """Per-layer **input** spike counts, (T, B) each ((T, C, B) for a
+    slab): the traffic statistic that drives the accelerator cycle model
+    (entry 0 counts the encoded input train)."""
     trains = layer_input_trains(cfg, params, spike_input,
                                 matmul_backend=matmul_backend)
-    return [t.reshape(t.shape[0], t.shape[1], -1).sum(-1) for t in trains]
+    lead = 2 if cells_of(cfg, params) is None else 3
+    return [t.reshape(t.shape[:lead] + (-1,)).sum(-1) for t in trains]

@@ -14,6 +14,13 @@ spikes, so the traces a DSE reads do not depend on which one ran.  Random
 bits (rate encoding) come from explicit ``torch.Generator``s; batches come
 from ``synthetic.batches`` as in the JAX package, so both see the same
 batches in the same order.
+
+``make_stacked_train_step`` is the train step of a slab of C cells
+(``distributed/cellstack.py``): params and Adam state with a leading cell
+axis, one generator per cell, (C, B, ...) batches.  Each cell's rate code
+is drawn from its own generator at the solo shape, and each cell's loss is
+the solo loss on its slice; their sum is differentiated, so each cell's
+gradient is its solo gradient bit for bit (times 1.0).
 """
 from __future__ import annotations
 
@@ -46,6 +53,27 @@ def _encode_input(generator: torch.Generator, x: torch.Tensor,
     return encoding.rate_encode(generator, x, num_steps)
 
 
+def encode_cells(generators, x: torch.Tensor,
+                 num_steps: int) -> torch.Tensor:
+    """(T, C, B, ...) input spikes of a slab's (C, B, ...) inputs: each
+    cell's rate code from its own generator at the solo shape, or each
+    cell's pre-encoded events."""
+    return torch.stack([_encode_input(gen, x[c], num_steps)
+                        for c, gen in enumerate(generators)], dim=1)
+
+
+def encode_shared(generator: torch.Generator, x: torch.Tensor,
+                  num_steps: int) -> torch.Tensor:
+    """(T, C, B, ...) input spikes of a slab's (C, B, ...) inputs from one
+    generator that every cell's solo run seeds alike (``evaluate``,
+    ``dump_traces``): one draw at the solo shape serves every cell."""
+    if x.ndim == 6:        # pre-encoded events (C, B, T, H, W, Ch)
+        return x.permute(2, 0, 1, 3, 4, 5)
+    u = encoding.rate_uniforms(generator, x.shape[1:], num_steps, x.device)
+    return torch.stack([encoding.rate_code(u, x[c])
+                        for c in range(x.shape[0])], dim=1)
+
+
 def loss_fn(cfg: snn.SNNConfig, params: snn.Params,
             generator: torch.Generator, x: torch.Tensor, y: torch.Tensor,
             matmul_backend: Optional[str] = None) -> torch.Tensor:
@@ -56,20 +84,30 @@ def loss_fn(cfg: snn.SNNConfig, params: snn.Params,
     return encoding.rate_loss(out_train, y, cfg.num_classes)
 
 
-def make_train_step(cfg: snn.SNNConfig, tx: optim.GradientTransform,
-                    matmul_backend: Optional[str] = None):
-    """One step of the training loop, ``(params, opt_state, generator, x,
-    y) -> (params, opt_state, loss)``: the loss and its gradient by BPTT,
-    then the optimizer's update.  Returns new parameter tensors; the
-    arguments are not changed in place."""
-    backend = snn.resolve_matmul_backend(matmul_backend)
+def stacked_loss_fn(cfg: snn.SNNConfig, params: snn.Params, generators,
+                    x: torch.Tensor, y: torch.Tensor,
+                    matmul_backend: Optional[str] = None) -> torch.Tensor:
+    """(C,) losses of a slab: each cell's ``loss_fn`` on its own inputs,
+    generator and slice of the slab's output train, at the solo shape."""
+    spikes_in = encode_cells(generators, x, cfg.num_steps)
+    out_train = snn.apply(cfg, params, spikes_in,
+                          matmul_backend=matmul_backend)
+    return torch.stack([encoding.rate_loss(out_train[:, c], y[c],
+                                           cfg.num_classes)
+                        for c in range(len(generators))])
+
+
+def _step_on(loss_of, tx: optim.GradientTransform):
+    """A train step on ``loss_of(params, generator(s), x, y)``, a scalar
+    loss or a slab's (C,) losses, whose sum is differentiated."""
 
     def train_step(params, opt_state, generator, x, y):
         leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
                   for p in params]
-        loss = loss_fn(cfg, leaves, generator, x, y, matmul_backend=backend)
+        loss = loss_of(leaves, generator, x, y)
         flat = [v for p in leaves for v in p.values()]
-        grads_flat = iter(torch.autograd.grad(loss, flat))
+        grads_flat = iter(torch.autograd.grad(
+            loss if loss.dim() == 0 else loss.sum(), flat))
         grads = [{k: next(grads_flat) for k in p} for p in leaves]
         with torch.no_grad():
             updates, opt_state = tx.update(grads, opt_state, params)
@@ -77,6 +115,29 @@ def make_train_step(cfg: snn.SNNConfig, tx: optim.GradientTransform,
         return params, opt_state, loss.detach()
 
     return train_step
+
+
+def make_train_step(cfg: snn.SNNConfig, tx: optim.GradientTransform,
+                    matmul_backend: Optional[str] = None):
+    """One step of the training loop, ``(params, opt_state, generator, x,
+    y) -> (params, opt_state, loss)``: the loss and its gradient by BPTT,
+    then the optimizer's update.  Returns new parameter tensors; the
+    arguments are not changed in place."""
+    backend = snn.resolve_matmul_backend(matmul_backend)
+    return _step_on(lambda p, gen, x, y: loss_fn(cfg, p, gen, x, y,
+                                                 matmul_backend=backend), tx)
+
+
+def make_stacked_train_step(cfg: snn.SNNConfig, tx: optim.GradientTransform,
+                            matmul_backend: Optional[str] = None):
+    """``make_train_step`` of a slab of C cells: ``(params, opt_state,
+    generators, x, y) -> (params, opt_state, losses)`` with every param and
+    optimizer leaf (C, ...), C generators, (C, B, ...) inputs and (C,)
+    losses.  The optimizer's arithmetic is elementwise, so one update of
+    the slab is each cell's solo update."""
+    backend = snn.resolve_matmul_backend(matmul_backend)
+    return _step_on(lambda p, gens, x, y: stacked_loss_fn(
+        cfg, p, gens, x, y, matmul_backend=backend), tx)
 
 
 def init_cell(cfg: snn.SNNConfig, tx: optim.GradientTransform, seed: int,

@@ -25,7 +25,9 @@ across repeated sweeps and across processes:
 ``TraceCache.resolve`` is the entry point; it also extends the cell's
 quantized-accuracy table (``validate.quantized_accuracy`` at the requested
 ``weight_bits``) for every topology.  Training runs on the cache's
-``device`` (the card unless told otherwise).
+``device`` (the card unless told otherwise).  ``TraceCache.publish`` stores
+a cell trained elsewhere (a slab of ``distributed/cellstack.py``) with the
+same hit, miss and budget semantics.
 """
 from __future__ import annotations
 
@@ -250,6 +252,59 @@ class TraceCache:
             workload=workload.name, assignment=norm, key=key, snn_cfg=cfg,
             params=params, accuracy=float(meta["accuracy"]), counts=counts,
             quant_acc=quant, cache_hit=hit)
+
+    def publish(self, workload: Workload, assignment: dict, seed: int = 0,
+                *, params, counts: Sequence[np.ndarray], accuracy: float,
+                quant_bits: Sequence[int] = (),
+                budget: Optional[TrainingBudget] = None) -> CellArtifact:
+        """Publish an already-trained cell (the batch hook of the stacked
+        trainer, ``distributed/cellstack.py``).  As ``resolve``: if the cell
+        is already published (a concurrent trainer won the race), the
+        stored copy is loaded and this counts as a hit (the caller's arrays
+        are dropped; deterministic training makes them equal anyway);
+        otherwise the arrays are written atomically (checkpoint first,
+        ``meta.msgpack`` last), the miss counter increments and ``budget``
+        is charged one miss, refunded if the write fails.  The
+        quantized-accuracy table extends as in ``resolve``, so a later solo
+        ``resolve`` of the same recipe is a pure hit.  ``params``: NumPy,
+        as ``convert.params_to_numpy`` gives them."""
+        T = int(assignment["num_steps"])
+        pop = float(assignment.get("population", 1.0))
+        norm = {"num_steps": T, "population": pop}
+        key = cell_key(workload, norm, seed)
+        cfg = workload.build(T, pop)
+        cell_dir = os.path.join(self.root, key)
+
+        meta = self._read_meta(cell_dir)
+        if meta is not None:
+            params, counts = self._load_arrays(cell_dir, workload, cfg, T)
+            self.hits += 1
+            hit = True
+        else:
+            if budget is not None:
+                budget.charge()
+            try:
+                params = [{k: np.asarray(v.detach().cpu().numpy()
+                                         if torch.is_tensor(v) else v)
+                           for k, v in p.items()} for p in params]
+                counts = [np.asarray(c, np.float32) for c in counts]
+                meta = {"workload": workload.name, "assignment": norm,
+                        "seed": int(seed), "accuracy": float(accuracy),
+                        "quant_acc": {}}
+                self._write_cell(cell_dir, workload, params, counts, meta)
+            except BaseException:
+                if budget is not None:   # a failed publish spent nothing
+                    budget.refund()
+                raise
+            self.misses += 1
+            hit = False
+
+        quant, meta = self._extend_quant(cell_dir, workload, cfg, T, params,
+                                         meta, quant_bits)
+        return CellArtifact(
+            workload=workload.name, assignment=norm, key=key, snn_cfg=cfg,
+            params=params, accuracy=float(meta["accuracy"]),
+            counts=list(counts), quant_acc=quant, cache_hit=hit)
 
     # ---- internals --------------------------------------------------------
     def _extend_quant(self, cell_dir: str, workload: Workload,

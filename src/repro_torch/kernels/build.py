@@ -124,6 +124,18 @@ def check_operand(t: torch.Tensor, name: str, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+def cell_lead(t: torch.Tensor, rank: int, what: str) -> tuple[int, ...]:
+    """``()`` for an operand of ``rank`` dims, ``(C,)`` for a slab of C
+    cells of it, ``rank + 1`` dims with the cell axis first (the kernels'
+    cell axis, ``distributed/cellstack.py``); raises on any other rank."""
+    if t.dim() == rank:
+        return ()
+    if t.dim() == rank + 1:
+        return (int(t.shape[0]),)
+    raise ValueError(f"{what} takes {rank} dims, or {rank + 1} with a "
+                     f"leading cell axis; got {tuple(t.shape)}")
+
+
 def cuda_device(t: torch.Tensor, what: str) -> torch.device:
     if t.device.type != "cuda":
         raise ValueError(f"{what} launches a CUDA kernel; got a tensor on "

@@ -23,6 +23,12 @@
 //
 // The tile's shape comes from the host (kernels/spike_conv.py:conv_geometry),
 // which also sizes the shared memory and refuses a layer that does not fit.
+//
+// A slab of cells (distributed/cellstack.py): C layers of one shape, each
+// with its own spikes, weights and output, run in one launch with the cell
+// as the outermost grid index (blockIdx.z).  A kernel moves its pointers to
+// its cell's operands first (cell_offsets); everything below then indexes
+// one cell's images, as in a solo launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -60,6 +66,18 @@ __device__ __forceinline__ int tiles_w(const Geom& g) {
 }
 __device__ __forceinline__ int num_tiles(const Geom& g) {
   return g.B * tiles_h(g) * tiles_w(g);
+}
+
+// Elements of one cell's input (B, H, W, C), output (B, OH, OW, F) and
+// filter (KH, KW, C, F).
+__device__ __forceinline__ size_t input_elems(const Geom& g) {
+  return (size_t)g.B * g.H * g.W * g.C;
+}
+__device__ __forceinline__ size_t output_elems(const Geom& g) {
+  return (size_t)g.B * g.OH * g.OW * g.F;
+}
+__device__ __forceinline__ size_t filter_elems(const Geom& g) {
+  return (size_t)g.KH * g.KW * g.C * g.F;
 }
 
 // Tiles in raster order: image, then tile row, then tile column.

@@ -70,6 +70,15 @@
 //
 // The flags are the kernels' (BM, BK) occupancy flags of S from
 // ops.block_flags, the same that dW reads in the backward.
+//
+// A cell axis.  A DSE slab trains C cells of one shape at once
+// (distributed/cellstack.py), each with its own W.  S, W, the flags, the
+// workspace and the output then lead with a cell axis, and the cell is the
+// outermost grid index: blockIdx.z = cell * splits + split.  Each cell runs
+// the solo shape's plan (split_plan of (M, N, K), never of C*M), so its
+// arithmetic is the solo launch's instruction for instruction, and one
+// launch serves the whole slab.  The tensor maps are 3-D, cells outermost;
+// a solo call is the slab of one cell.
 #pragma once
 
 #include <cuda.h>                     // CUtensorMap; the encoder comes from
@@ -113,6 +122,7 @@ struct Smem {
 constexpr size_t kSmemBytes = sizeof(Smem);
 
 // Tensor maps of S (boxes of BM rows x one slab) and W (one slab x kCols),
+// 3-D with the cell outermost (boxes one cell deep),
 // each used only where its flag says the operand takes tensor copies
 // (rows of whole float4s from a 16-byte aligned base; host_maps).
 struct Maps {
@@ -169,16 +179,17 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
       : "memory");
 }
 
-// The tensor memory accelerator: the box of `map` at (c0, c1), inner
-// coordinate first, to shared memory, counted on the barrier; elements
-// outside the matrix arrive as zeros.
+// The tensor memory accelerator: the box of `map` at (c0, c1) of cell c2,
+// inner coordinate first, to shared memory, counted on the barrier;
+// elements outside the cell's matrix arrive as zeros.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1,
+                                         int c0, int c1, int c2,
                                          unsigned long long* bar) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"((unsigned long long)map), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"((unsigned long long)map), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -205,6 +216,7 @@ __device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
 
 // ---- the block's share of the product ----------------------------------
 struct Tile {
+  int cell;                             // the cell of the slab
   int m0, n0;                           // first row of M, first column of N
   int kt_end;                           // one past the split's last slab
   const int* f0;                        // flag row of rows m0 .. m0+BM-1
@@ -240,6 +252,8 @@ __device__ __forceinline__ Slab slab_of(const Tile& t, int M, int K, int kt) {
 // Otherwise the 32 lanes copy the same rows with 4-byte cp.asyncs.  Either
 // way the rest of the stage keeps what it held: accumulate_slab reads only
 // the rows and depth the slab holds, and columns past N are never stored.
+// S and W are the cell's own (accumulate offsets them); the tensor maps
+// take the cell as their third coordinate.
 __device__ __forceinline__ void issue_slab(const float* __restrict__ S,
                                            const float* __restrict__ W,
                                            const Maps& maps, int M, int N,
@@ -256,11 +270,12 @@ __device__ __forceinline__ void issue_slab(const float* __restrict__ S,
                                         : 0u));
     // the stage was last read through the generic proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    if (maps.tma_w) tma_load(&st.w[0][0], &maps.w, t.n0, sl.k0, bar);
+    if (maps.tma_w)
+      tma_load(&st.w[0][0], &maps.w, t.n0, sl.k0, t.cell, bar);
     if (maps.tma_s && sl.rows0)
-      tma_load(&st.s[0][0], &maps.s, sl.k0, t.m0, bar);
+      tma_load(&st.s[0][0], &maps.s, sl.k0, t.m0, t.cell, bar);
     if (maps.tma_s && sl.rows1)
-      tma_load(&st.s[BM][0], &maps.s, sl.k0, t.m0 + BM, bar);
+      tma_load(&st.s[BM][0], &maps.s, sl.k0, t.m0 + BM, t.cell, bar);
   }
   if (maps.tma_s && maps.tma_w) return;
   if (!maps.tma_s) {
@@ -336,24 +351,31 @@ __device__ __forceinline__ void accumulate_slab(
   }
 }
 
-// Block (x: row tile, y: column tile, z: split) sums S @ W over its split's
-// slabs.  The producer warp walks the active slabs and fills the ring; each
-// consumer warp walks them too, waits for a stage to land, sums its rows of
-// it into acc and frees it, with no barrier across the block, so a warp
-// with many spikes in one slab holds up no other warp.  Returns false on
+// Block (x: row tile, y: column tile, z: cell * splits + split) sums the
+// cell's S @ W over its split's slabs.  The producer warp walks the active
+// slabs and fills the ring; each consumer warp walks them too, waits for a
+// stage to land, sums its rows of it into acc and frees it, with no barrier
+// across the block, so a warp with many spikes in one slab holds up no
+// other warp.  Returns false on
 // the producer warp; on a consumer warp acc[i][q] holds row
 // m0 + warp + kWarps*i, columns n0 + 128*q + 4*lane .. +3 (see row_of /
 // col_of).
 __device__ __forceinline__ bool accumulate(
     const float* __restrict__ S, const float* __restrict__ W,
     const Maps& maps, const int* __restrict__ flags, int M, int N, int K,
-    int slabs_per_split, Smem& sm, float4 (&acc)[kRowsPerWarp][kQuads]) {
+    int splits, int slabs_per_split, Smem& sm,
+    float4 (&acc)[kRowsPerWarp][kQuads]) {
   const int kt_count = (K + kSlab - 1) / kSlab;
   const int flag_rows = (M + BM - 1) / BM;
   const int fr = 2 * (int)blockIdx.x;
-  const int kt_begin = (int)blockIdx.z * slabs_per_split;
+  const int cell = (int)blockIdx.z / splits;
+  const int kt_begin = ((int)blockIdx.z - cell * splits) * slabs_per_split;
   const int warp = threadIdx.x / 32;
+  S += (size_t)cell * M * K;
+  W += (size_t)cell * K * N;
+  flags += (size_t)cell * flag_rows * kt_count;
   Tile t;
+  t.cell = cell;
   t.m0 = (int)blockIdx.x * kRows;
   t.n0 = (int)blockIdx.y * kCols;
   t.kt_end = min(kt_count, kt_begin + slabs_per_split);
@@ -440,6 +462,15 @@ __device__ __forceinline__ void store(
   }
 }
 
+// Where a split block's sums go: its cell's output with one split, else
+// its split's slice of the (cells, splits, M, N) workspace.
+__device__ __forceinline__ float* split_dst(float* out, float* part, int M,
+                                            int N, int splits) {
+  const size_t mn = (size_t)M * N;
+  if (splits == 1) return out + (size_t)blockIdx.z * mn;   // z = cell
+  return part + (size_t)blockIdx.z * mn;   // z = cell * splits + split
+}
+
 // Sum of the splits' partials of output idx, in ascending split order.
 __device__ __forceinline__ float sum_splits(const float* __restrict__ part,
                                             int splits, size_t mn,
@@ -455,24 +486,25 @@ static inline bool tma_ok(const void* base, int cols) {
   return cols > 0 && cols % 4 == 0 && ((uintptr_t)base & 15u) == 0;
 }
 
-static inline dim3 grid(int M, int N, int splits) {
+static inline dim3 grid(int cells, int M, int N, int splits) {
   return dim3((unsigned)((M + kRows - 1) / kRows),
-              (unsigned)((N + kCols - 1) / kCols), (unsigned)splits);
+              (unsigned)((N + kCols - 1) / kCols),
+              (unsigned)(cells * splits));
 }
 
-// The tensor map of a row-major fp32 (rows, cols) matrix cut into
-// (box_rows, box_cols) boxes.  A map holds only the address, the shape and
-// the box, so maps are kept in a small cache and reused while a matrix
-// lives at the same address with the same shape (the model's weights at
-// every time step): encoding one costs host time on every call otherwise.
-// The encoder is the driver's cuTensorMapEncodeTiled, found through the
-// runtime.
+// The tensor map of `cells` row-major fp32 (rows, cols) matrices, one
+// after another, cut into (box_rows, box_cols) boxes one cell deep.  A map
+// holds only the address, the shape and the box, so maps are kept in a
+// small cache and reused while a slab lives at the same address with the
+// same shape (the model's weights at every time step): encoding one costs
+// host time on every call otherwise.  The encoder is libcuda's
+// cuTensorMapEncodeTiled, found through the runtime.
 static inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
-                                     int rows, int cols, int box_rows,
-                                     int box_cols) {
+                                     int cells, int rows, int cols,
+                                     int box_rows, int box_cols) {
   struct Entry {
     const void* base;
-    int rows, cols, box_rows, box_cols;
+    int cells, rows, cols, box_rows, box_cols;
     CUtensorMap map;
   };
   static std::mutex lock;
@@ -481,8 +513,8 @@ static inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
   static decltype(&cuTensorMapEncodeTiled) encode = nullptr;
   std::lock_guard<std::mutex> guard(lock);
   for (const Entry& e : cache) {
-    if (e.base == base && e.rows == rows && e.cols == cols &&
-        e.box_rows == box_rows && e.box_cols == box_cols) {
+    if (e.base == base && e.cells == cells && e.rows == rows &&
+        e.cols == cols && e.box_rows == box_rows && e.box_cols == box_cols) {
       *map = e.map;
       return cudaSuccess;
     }
@@ -497,12 +529,16 @@ static inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
       return cudaErrorNotSupported;
     encode = (decltype(&cuTensorMapEncodeTiled))fn;
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t stride[1] = {(cuuint64_t)cols * sizeof(float)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
+  // a cell's matrix is whole float4 rows (tma_ok), so its byte size, the
+  // cell stride, is a multiple of 16 as the encoder requires
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)cells};
+  const cuuint64_t stride[2] = {(cuuint64_t)cols * sizeof(float),
+                                (cuuint64_t)rows * cols * sizeof(float)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
   Entry& e = cache[next];
-  if (encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)base, dims,
+  if (encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)base, dims,
              stride, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
@@ -510,6 +546,7 @@ static inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
     return cudaErrorInvalidValue;
   }
   e.base = base;
+  e.cells = cells;
   e.rows = rows;
   e.cols = cols;
   e.box_rows = box_rows;
@@ -521,14 +558,14 @@ static inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
 
 // The kernel's Maps: a tensor map for each operand that takes them.
 static inline cudaError_t host_maps(Maps* maps, const void* S, const void* W,
-                                   int M, int N, int K) {
+                                   int cells, int M, int N, int K) {
   *maps = Maps{};
   maps->tma_s = tma_ok(S, K);
   maps->tma_w = tma_ok(W, N) && K > 0;
   cudaError_t err = cudaSuccess;
-  if (maps->tma_s) err = tensor_map(&maps->s, S, M, K, BM, kSlab);
+  if (maps->tma_s) err = tensor_map(&maps->s, S, cells, M, K, BM, kSlab);
   if (err == cudaSuccess && maps->tma_w)
-    err = tensor_map(&maps->w, W, K, N, kSlab, kCols);
+    err = tensor_map(&maps->w, W, cells, K, N, kSlab, kCols);
   return err;
 }
 

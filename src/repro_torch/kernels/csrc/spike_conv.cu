@@ -43,6 +43,10 @@
 // order, in one thread: on grid weights, whose partial sums are exact in
 // fp32, the result equals the plain version (kernels/ref.py) bit for bit,
 // and every call gives the same bytes.  fp32 FMAs on CUDA cores; no TF32.
+//
+// A slab of cells (distributed/cellstack.py): the cell is grid.z and each
+// block first moves x, w and out to its cell's; the tiles, their sums and
+// their order are a solo launch's.
 #include "conv_halo.cuh"
 
 constexpr int kWarps = 8;
@@ -121,6 +125,9 @@ spike_conv_strip_kernel(const float* __restrict__ x,
                         const float* __restrict__ w, float* __restrict__ out,
                         conv::Geom g) {
   extern __shared__ __align__(16) float smem[];
+  x += blockIdx.z * conv::input_elems(g);
+  w += blockIdx.z * conv::filter_elems(g);
+  out += blockIdx.z * conv::output_elems(g);
   const int K = g.KH * kKW * g.C;
   const int nhalo = conv::halo_rows(g) * conv::halo_cols(g);
   float* wsm = smem;                                     // [KH][C][KW][32]
@@ -232,6 +239,9 @@ spike_conv_pixel_kernel(const float* __restrict__ x,
                         const float* __restrict__ w, float* __restrict__ out,
                         conv::Geom g) {
   extern __shared__ __align__(16) float smem[];
+  x += blockIdx.z * conv::input_elems(g);
+  w += blockIdx.z * conv::filter_elems(g);
+  out += blockIdx.z * conv::output_elems(g);
   const int taps = g.KH * g.KW, K = taps * g.C;
   const int hc = conv::halo_cols(g), cw = conv::mask_words(g);
   const int nhalo = conv::halo_rows(g) * hc;
@@ -313,14 +323,16 @@ spike_conv_pixel_kernel(const float* __restrict__ x,
   }
 }
 
-// Launches `kernel` on one wave of blocks over the tiles (the sums do not
-// depend on how many), after allowing it the H100's 227 KiB of dynamic
+// Launches `kernel` on one wave of blocks over the tiles of `cells` cells
+// (the sums do not depend on how many), after allowing it the H100's 227 KiB
+// of dynamic
 // shared memory; the host sizes each launch's own and refuses more.  The
 // statics are per kernel and per device: launches come from one host
 // thread.
 template <auto kernel>
-static cudaError_t launch(const conv::Geom& g, const float* x, const float* w,
-                          float* out, int smem, cudaStream_t st) {
+static cudaError_t launch(const conv::Geom& g, int cells, const float* x,
+                          const float* w, float* out, int smem,
+                          cudaStream_t st) {
   // the attribute is set and the card's SMs read once per device, and the
   // blocks that fit an SM once per shared-memory size (a net's few layers)
   struct Seen {
@@ -357,34 +369,37 @@ static cudaError_t launch(const conv::Geom& g, const float* x, const float* w,
                           ((g.OW + g.TW - 1) / g.TW);
   const int chunks = (g.F + 31) / 32;
   const long long wave =
-      max(1LL, (long long)d.sms * max(d.per_sm[i], 1) / chunks);
-  const dim3 grid((unsigned)min(tiles, wave), (unsigned)chunks);
+      max(1LL, (long long)d.sms * max(d.per_sm[i], 1) / (chunks * cells));
+  const dim3 grid((unsigned)min(tiles, wave), (unsigned)chunks,
+                  (unsigned)cells);
   kernel<<<grid, kThreads, (size_t)smem, st>>>(x, w, out, g);
   return cudaGetLastError();
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// `strip` picks the strip kernel, which takes KW = 3 and stride 1 and a TW
-// that is a multiple of kStrip; `smem` is the block's dynamic shared memory
-// in bytes, words of 4 bytes: K*32 (W) + HR*HC*C (the halo) +
+// `cells` convolutions of one shape: x cells x (B, H, W, C), w cells x (KH,
+// KW, C, F), out cells x (B, OH, OW, F).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).  `strip` picks the strip kernel, which
+// takes KW = 3 and stride 1 and a TW that is a multiple of kStrip; `smem`
+// is the block's dynamic shared memory in bytes, words of 4 bytes: K*32 (W) + HR*HC*C (the halo) +
 // HR*HC*ceil(C/32) (its masks), K = KH*KW*C, and for the pixel kernel also
 // 9*P (the offsets in the halo and 8 warps' event lists), P = K rounded up
 // to a multiple of 4 (kernels/spike_conv.py:conv_geometry).
 extern "C" int spike_conv_launch(const void* x, const void* w, void* out,
-                                 int B, int H, int W, int C, int OH, int OW,
-                                 int F, int KH, int KW, int stride, int pad_t,
-                                 int pad_l, int TR, int TW, int smem,
-                                 int strip, void* stream) {
-  if ((long long)B * OH * OW == 0 || F == 0) return (int)cudaSuccess;
+                                 int cells, int B, int H, int W, int C,
+                                 int OH, int OW, int F, int KH, int KW,
+                                 int stride, int pad_t, int pad_l, int TR,
+                                 int TW, int smem, int strip, void* stream) {
+  if ((long long)cells * B * OH * OW == 0 || F == 0) return (int)cudaSuccess;
+  if (cells > 65535) return (int)cudaErrorInvalidValue;
   const conv::Geom g{B, H, W, C, OH, OW, F, KH, KW, stride, pad_t, pad_l,
                      TR, TW};
   cudaStream_t st = (cudaStream_t)stream;
   if (strip && (KW != 3 || stride != 1 || TW % kStrip != 0))
     return (int)cudaErrorInvalidValue;
   return (int)(strip ? launch<spike_conv_strip_kernel<3>>(
-                              g, (const float*)x, (const float*)w,
+                              g, cells, (const float*)x, (const float*)w,
                               (float*)out, smem, st)
                      : launch<spike_conv_pixel_kernel>(
-                              g, (const float*)x, (const float*)w,
+                              g, cells, (const float*)x, (const float*)w,
                               (float*)out, smem, st));
 }

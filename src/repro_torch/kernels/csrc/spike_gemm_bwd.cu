@@ -154,6 +154,17 @@
 // 0: exactly what the matrix dS in patch space followed by col2im computes.
 // So on any operands the kernel equals col2im of this file's dense dS bit
 // for bit, and the plain version (kernels/ref.py) on grid operands.
+//
+// ---- A slab of cells -----------------------------------------------------
+// A DSE slab (distributed/cellstack.py) trains C cells of one shape at once,
+// each with its own weights.  Every operand and output then leads with a
+// cell axis, and every kernel here takes the cell as its outermost grid
+// index (blockIdx.z; the reductions' blockIdx.y) and first moves its
+// pointers to the cell's operands.  The plans stay the solo shape's (the
+// conv dW's splits, with their order of sums, above all), so each cell's
+// result is the solo launch's bit for bit, and one launch serves the slab.
+// The gates (dS's any-nonzero test, the event walks) read the cell's own
+// operands.
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -333,6 +344,9 @@ spike_gemm_dw_kernel(const float* __restrict__ S, const float* __restrict__ G,
                      float* __restrict__ out, int M, int N, int K) {
   constexpr int kCols = 128 * kF4;
   extern __shared__ __align__(16) float smem[];
+  S += (size_t)blockIdx.z * M * K;
+  G += (size_t)blockIdx.z * M * N;
+  out += (size_t)blockIdx.z * K * N;
   float* gs = smem;                                  // [kDwM][kCols]
   float* ss = smem + kDwM * kCols;                   // [2][kDwM][kDwSRow]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -443,6 +457,9 @@ spike_gemm_ds_large_kernel(const float* __restrict__ G,
                            const float* __restrict__ W,
                            float* __restrict__ out, int M, int K, int N) {
   extern __shared__ __align__(16) float smem[];
+  G += (size_t)blockIdx.z * M * N;
+  W += (size_t)blockIdx.z * K * N;
+  out += (size_t)blockIdx.z * M * K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp & 1, wk = warp >> 1;
   const int ly = lane >> 3, lx = lane & 7;
@@ -531,6 +548,9 @@ spike_gemm_ds_small_kernel(const float* __restrict__ G,
                            const float* __restrict__ W,
                            float* __restrict__ out, int M, int K, int N) {
   extern __shared__ __align__(16) float smem[];
+  G += (size_t)blockIdx.z * M * N;
+  W += (size_t)blockIdx.z * K * N;
+  out += (size_t)blockIdx.z * M * K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int m0 = blockIdx.x * kDsSM, k0 = blockIdx.y * kDsSK;
   const int chunks = (N + kDsNc - 1) / kDsNc;
@@ -650,6 +670,9 @@ spike_conv_ds_strip_kernel(const float* __restrict__ G,
                            const float* __restrict__ w,
                            float* __restrict__ out, conv::Geom g) {
   extern __shared__ __align__(16) float smem[];
+  G += blockIdx.z * conv::output_elems(g);
+  w += blockIdx.z * conv::filter_elems(g);
+  out += blockIdx.z * conv::input_elems(g);
   const int F = g.F, C = g.C, KH = g.KH;
   const int hrows = kDsRows + KH - 1, plane = ds_plane(KH);
   float* ws = smem;                                  // [KH*3][F][kDsCh]
@@ -746,6 +769,9 @@ __global__ void __launch_bounds__(kThreads)
 spike_conv_ds_pixel_kernel(const float* __restrict__ G,
                            const float* __restrict__ w,
                            float* __restrict__ out, conv::Geom g) {
+  G += blockIdx.z * conv::output_elems(g);
+  w += blockIdx.z * conv::filter_elems(g);
+  out += blockIdx.z * conv::input_elems(g);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = blockIdx.y * 32 + lane, cw = min(c, g.C - 1);
   const long long npix = (long long)g.B * g.H * g.W;
@@ -778,10 +804,14 @@ spike_conv_ds_pixel_kernel(const float* __restrict__ G,
 
 // out[i] = part[0][i] + part[1][i] + ... in ascending split order, a
 // thread an output: for a conv layer's dW of few splits (a small layer).
+// Both reductions take the cell as blockIdx.y: part is cells x splits x n,
+// out cells x n.
 __global__ void __launch_bounds__(kThreads)
 dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
                  int splits, size_t n) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  part += (size_t)blockIdx.y * splits * n;
+  out += (size_t)blockIdx.y * n;
   if (i >= n) return;
   float sum = part[i];
   for (int s = 1; s < splits; ++s) sum += part[(size_t)s * n + i];
@@ -801,6 +831,8 @@ dw_reduce_slab_kernel(const float* __restrict__ part, float* __restrict__ out,
   __shared__ float slab[kReduceWarps * 32][33];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t i = (size_t)blockIdx.x * 32 + lane;
+  part += (size_t)blockIdx.y * splits * n;
+  out += (size_t)blockIdx.y * n;
   float sum = 0.0f;
   for (int s0 = 0; s0 < splits; s0 += kReduceWarps * 32) {
     __syncthreads();          // warp 0 is done with the last slabs
@@ -818,59 +850,70 @@ dw_reduce_slab_kernel(const float* __restrict__ part, float* __restrict__ out,
   if (warp == 0 && i < n) out[i] = sum;
 }
 
-static inline void dw_reduce(const float* part, float* out, int splits,
-                             size_t n, cudaStream_t st) {
+static inline void dw_reduce(const float* part, float* out, int cells,
+                             int splits, size_t n, cudaStream_t st) {
   if (splits <= 32)
-    dw_reduce_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
-                       0, st>>>(part, out, splits, n);
+    dw_reduce_kernel<<<dim3((unsigned)((n + kThreads - 1) / kThreads),
+                            (unsigned)cells),
+                       kThreads, 0, st>>>(part, out, splits, n);
   else
-    dw_reduce_slab_kernel<<<(unsigned)((n + 31) / 32), kReduceWarps * 32, 0,
-                            st>>>(part, out, splits, n);
+    dw_reduce_slab_kernel<<<dim3((unsigned)((n + 31) / 32), (unsigned)cells),
+                            kReduceWarps * 32, 0, st>>>(part, out, splits, n);
 }
 
 template <int kF4, bool kVec>
 static cudaError_t dw_launch(const float* S, const float* G, float* out,
-                             int M, int N, int K, int blocks,
+                             int cells, int M, int N, int K, int blocks,
                              cudaStream_t st) {
   const size_t smem = sizeof(float) * kDwM * (128 * kF4 + 2 * kDwSRow);
   cudaError_t err = allow_smem<spike_gemm_dw_kernel<kF4, kVec>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)blocks,
-                  (unsigned)((N + 128 * kF4 - 1) / (128 * kF4)));
+                  (unsigned)((N + 128 * kF4 - 1) / (128 * kF4)),
+                  (unsigned)cells);
   spike_gemm_dw_kernel<kF4, kVec><<<grid, kDwWarps * 32, smem, st>>>(
       S, G, out, M, N, K);
   return cudaGetLastError();
 }
 
-// dW of a Dense layer by blocks of 128 * f4 columns of N (f4 = 1, 2 or 4),
-// `blocks` of them along K (one wave; the sums do not depend on how many)
+// dW of `cells` Dense layers (S cells x M x K, g cells x M x N, dW cells x
+// K x N) by blocks of 128 * f4 columns of N (f4 = 1, 2 or 4), `blocks` of
+// them along K for each cell (one wave; the sums do not depend on how many)
 // (kernels/spike_gemm_bwd.py:dw_plan).  `vec`: N is a multiple of 4 and g
 // and dW start on 16 bytes.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int spike_gemm_dw_launch(const void* S, const void* G, void* out,
-                                   int M, int N, int K, int f4, int vec,
-                                   int blocks, void* stream) {
-  if (K == 0 || N == 0) return (int)cudaSuccess;
+                                   int cells, int M, int N, int K, int f4,
+                                   int vec, int blocks, void* stream) {
+  if (cells == 0 || K == 0 || N == 0) return (int)cudaSuccess;
+  if (cells > 65535) return (int)cudaErrorInvalidValue;
   const float* s = (const float*)S;
   const float* g = (const float*)G;
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
   switch (f4 * 2 + (vec != 0)) {
-    case 2: return (int)dw_launch<1, false>(s, g, o, M, N, K, blocks, st);
-    case 3: return (int)dw_launch<1, true>(s, g, o, M, N, K, blocks, st);
-    case 4: return (int)dw_launch<2, false>(s, g, o, M, N, K, blocks, st);
-    case 5: return (int)dw_launch<2, true>(s, g, o, M, N, K, blocks, st);
-    case 8: return (int)dw_launch<4, false>(s, g, o, M, N, K, blocks, st);
-    case 9: return (int)dw_launch<4, true>(s, g, o, M, N, K, blocks, st);
+    case 2: return (int)dw_launch<1, false>(s, g, o, cells, M, N, K, blocks,
+                                             st);
+    case 3: return (int)dw_launch<1, true>(s, g, o, cells, M, N, K, blocks,
+                                             st);
+    case 4: return (int)dw_launch<2, false>(s, g, o, cells, M, N, K, blocks,
+                                             st);
+    case 5: return (int)dw_launch<2, true>(s, g, o, cells, M, N, K, blocks,
+                                             st);
+    case 8: return (int)dw_launch<4, false>(s, g, o, cells, M, N, K, blocks,
+                                             st);
+    case 9: return (int)dw_launch<4, true>(s, g, o, cells, M, N, K, blocks,
+                                             st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <auto kernel>
 static cudaError_t ds_launch(const float* G, const float* W, float* out,
-                             int M, int K, int N, int bm, int bk,
+                             int cells, int M, int K, int N, int bm, int bk,
                              int threads, size_t smem, cudaStream_t st) {
-  const dim3 grid((unsigned)((M + bm - 1) / bm), (unsigned)((K + bk - 1) / bk));
+  const dim3 grid((unsigned)((M + bm - 1) / bm), (unsigned)((K + bk - 1) / bk),
+                  (unsigned)cells);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem<kernel>(smem);
   if (err != cudaSuccess) return err;
@@ -878,35 +921,42 @@ static cudaError_t ds_launch(const float* G, const float* W, float* out,
   return cudaGetLastError();
 }
 
-// dS = g @ W^T by the large blocks of 64 x 128 outputs (`large`) or the
+// dS = g @ W^T of `cells` Dense layers (g cells x M x N, W cells x K x N,
+// dS cells x M x K) by the large blocks of 64 x 128 outputs (`large`) or the
 // small ones of 32 x 32 (kernels/spike_gemm_bwd.py:ds_plan).  `vec`: N is a
 // multiple of 4 and g and W start on 16 bytes.  Launches on `stream` and
 // returns cudaGetLastError().
 extern "C" int spike_gemm_ds_launch(const void* G, const void* W, void* out,
-                                   int M, int K, int N, int large, int vec,
-                                   void* stream) {
-  if (M == 0 || K == 0) return (int)cudaSuccess;
+                                   int cells, int M, int K, int N, int large,
+                                   int vec, void* stream) {
+  if (cells == 0 || M == 0 || K == 0) return (int)cudaSuccess;
+  if (cells > 65535) return (int)cudaErrorInvalidValue;
   const float* g = (const float*)G;
   const float* w = (const float*)W;
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
   if (large)
     return (int)(vec ? ds_launch<spike_gemm_ds_large_kernel<true>>(
-                           g, w, o, M, K, N, kDsLM, kDsLK, kDsLWarps * 32,
+                           g, w, o, cells, M, K, N, kDsLM, kDsLK,
+                           kDsLWarps * 32,
                            kDsLSmem, st)
                      : ds_launch<spike_gemm_ds_large_kernel<false>>(
-                           g, w, o, M, K, N, kDsLM, kDsLK, kDsLWarps * 32,
+                           g, w, o, cells, M, K, N, kDsLM, kDsLK,
+                           kDsLWarps * 32,
                            kDsLSmem, st));
   return (int)(vec ? ds_launch<spike_gemm_ds_small_kernel<true>>(
-                         g, w, o, M, K, N, kDsSM, kDsSK, kThreads, kDsSSmem,
+                         g, w, o, cells, M, K, N, kDsSM, kDsSK, kThreads,
+                         kDsSSmem,
                          st)
                    : ds_launch<spike_gemm_ds_small_kernel<false>>(
-                         g, w, o, M, K, N, kDsSM, kDsSK, kThreads, kDsSSmem,
+                         g, w, o, cells, M, K, N, kDsSM, kDsSK, kThreads,
+                         kDsSSmem,
                          st));
 }
 
-// dS of a Conv layer, (B, H, W, C), from its (B, OH, OW, F) cotangent and
-// (KH, KW, C, F) weights, on `blocks` x ceil(C/32) blocks
+// dS of `cells` Conv layers, cells x (B, H, W, C), from their cells x (B,
+// OH, OW, F) cotangent and cells x (KH, KW, C, F) weights, on `blocks` x
+// ceil(C/32) blocks a cell
 // (kernels/spike_gemm_bwd.py:conv_ds_plan).  `strip` picks the strip
 // kernel, which takes KW = 3, stride 1 and the tile TR x TW = kDsRows x
 // kDsStrip, with `smem` bytes of dynamic shared memory: 4 * (KH*3*F*36 (W)
@@ -914,14 +964,16 @@ extern "C" int spike_gemm_ds_launch(const void* G, const void* W, void* out,
 // else the pixel kernel runs, without shared memory.  Launches on `stream`
 // and returns cudaGetLastError() (0 on success).
 extern "C" int spike_conv_ds_launch(const void* G, const void* w, void* out,
-                                    int B, int H, int W, int C, int OH,
-                                    int OW, int F, int KH, int KW,
+                                    int cells, int B, int H, int W, int C,
+                                    int OH, int OW, int F, int KH, int KW,
                                     int stride, int pad_t, int pad_l, int TR,
                                     int TW, int smem, int strip, int blocks,
                                     void* stream) {
-  if ((long long)B * H * W == 0 || C == 0) return (int)cudaSuccess;
+  if ((long long)cells * B * H * W == 0 || C == 0) return (int)cudaSuccess;
+  if (cells > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((unsigned)blocks, (unsigned)((C + 31) / 32));
+  const dim3 grid((unsigned)blocks, (unsigned)((C + 31) / 32),
+                  (unsigned)cells);
   const conv::Geom geo{B, H, W, C, OH, OW, F, KH, KW, stride, pad_t, pad_l,
                        TR, TW};
   if (!strip) {
@@ -950,6 +1002,8 @@ spike_conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ G,
                      float* __restrict__ part, conv::Geom g,
                      int tiles_per_split) {
   extern __shared__ __align__(16) float smem[];
+  x += blockIdx.z * conv::input_elems(g);
+  G += blockIdx.z * conv::output_elems(g);
   const int taps = g.KH * g.KW;
   const int hc = conv::halo_cols(g), cw = conv::mask_words(g);
   const int npix = g.TR * g.TW;
@@ -1033,44 +1087,50 @@ spike_conv_dw_kernel(const float* __restrict__ x, const float* __restrict__ G,
     }
   }
   __syncthreads();
-  // the block's partial sums, part[split][(tap*C + c)*F + f]
-  float* dst = part + (size_t)blockIdx.x * taps * g.C * g.F;
+  // the block's partial sums, part[cell][split][(tap*C + c)*F + f] (with
+  // one split, the cell's dW itself)
+  float* dst = part + ((size_t)blockIdx.z * gridDim.x + blockIdx.x) *
+                         conv::filter_elems(g);
   for (int e = threadIdx.x; e < taps * g.C * 32; e += blockDim.x) {
     const int fe = blockIdx.y * 32 + (e & 31);
     if (fe < g.F) dst[(size_t)(e >> 5) * g.F + fe] = dws[(e >> 5) * 33 + (e & 31)];
   }
 }
 
-// dW of a Conv layer over `splits` ranges of `tiles_per_split` tiles each,
-// by blocks of `warps` warps (kernels/spike_gemm_bwd.py:conv_dw_plan).
-// With one split the partials are the result and go straight to `out`;
-// otherwise `part` holds splits x (KH*KW*C*F) floats.  `smem` is a block's
+// dW of `cells` Conv layers (x cells x (B, H, W, C), g cells x (B, OH, OW,
+// F), out cells x (KH, KW, C, F)), each over `splits` ranges of
+// `tiles_per_split` tiles, by blocks of `warps` warps
+// (kernels/spike_gemm_bwd.py:conv_dw_plan, of the solo shape).  With one
+// split the partials are the result and go straight to `out`; otherwise
+// `part` holds cells x splits x (KH*KW*C*F) floats.  `smem` is a block's
 // dynamic shared memory in bytes: 4 * (KH*KW*C*33 (the partial sums) +
 // TR*TW*32 (g rows) + HR*HC*C (the halo) + HR*HC*ceil(C/32) (its masks)).
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int spike_conv_dw_launch(const void* x, const void* G, void* part,
-                                    void* out, int B, int H, int W, int C,
-                                    int OH, int OW, int F, int KH, int KW,
-                                    int stride, int pad_t, int pad_l, int TR,
-                                    int TW, int warps, int splits,
-                                    int tiles_per_split, int smem,
+                                    void* out, int cells, int B, int H,
+                                    int W, int C, int OH, int OW, int F,
+                                    int KH, int KW, int stride, int pad_t,
+                                    int pad_l, int TR, int TW, int warps,
+                                    int splits, int tiles_per_split, int smem,
                                     void* stream) {
   const size_t n = (size_t)KH * KW * C * F;
-  if (n == 0) return (int)cudaSuccess;
+  if (n == 0 || cells == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   if ((long long)B * OH * OW == 0)
-    return (int)cudaMemsetAsync(out, 0, n * sizeof(float), st);
-  if (warps < 1 || warps > kConvDwMaxWarps) return (int)cudaErrorInvalidValue;
+    return (int)cudaMemsetAsync(out, 0, cells * n * sizeof(float), st);
+  if (warps < 1 || warps > kConvDwMaxWarps || cells > 65535)
+    return (int)cudaErrorInvalidValue;
   const conv::Geom g{B, H, W, C, OH, OW, F, KH, KW, stride, pad_t, pad_l,
                      TR, TW};
   cudaError_t err = allow_smem<spike_conv_dw_kernel>((size_t)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)splits, (unsigned)((F + 31) / 32));
+  const dim3 grid((unsigned)splits, (unsigned)((F + 31) / 32),
+                  (unsigned)cells);
   spike_conv_dw_kernel<<<grid, warps * 32, (size_t)smem, st>>>(
       (const float*)x, (const float*)G, (float*)(splits == 1 ? out : part),
       g, tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  dw_reduce((const float*)part, (float*)out, splits, n, st);
+  dw_reduce((const float*)part, (float*)out, cells, splits, n, st);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,10 @@
 // 1 MiB at net-5's B = 64.  With one split the split pass runs the epilogue
 // on its registers; with more, it writes partial sums and the reduction
 // kernel adds the splits in ascending order and runs the epilogue.  Both
-// launch from spike_gemm_lif_launch: one op call, one counted launch.
+// launch from spike_gemm_lif_launch: one op call, one counted launch.  A
+// slab of `cells` steps of one shape runs in the same launch, each cell on
+// the solo shape's split plan (dense_split.cuh, "A cell axis"), with its
+// own bias and membranes.
 #include "dense_split.cuh"
 
 struct Lif {
@@ -36,6 +39,17 @@ struct Lif {
   int subtract_reset;
   int vec;                              // N whole float4s, bases aligned
 };
+
+// The cell's own bias and (M, N) membranes.
+__device__ __forceinline__ Lif cell_lif(Lif p, int cell, int M, int N) {
+  const size_t mn = (size_t)M * N;
+  p.bias += (size_t)cell * N;
+  p.u_prev += cell * mn;
+  p.s_prev += cell * mn;
+  p.u_out += cell * mn;
+  p.s_out += cell * mn;
+  return p;
+}
 
 __device__ __forceinline__ float lif_u(const Lif& p, float cur, float up,
                                        float sp) {
@@ -109,17 +123,18 @@ spike_gemm_lif_split_kernel(const float* __restrict__ S,
                             const __grid_constant__ dense::Maps maps,
                             const int* __restrict__ flags,
                             float* __restrict__ part, Lif lif, int M, int N,
-                            int K, int slabs_per_split) {
+                            int K, int splits, int slabs_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   dense::Smem& sm = *reinterpret_cast<dense::Smem*>(smem);
   float4 acc[dense::kRowsPerWarp][dense::kQuads];
-  if (!dense::accumulate(S, W, maps, flags, M, N, K, slabs_per_split, sm,
-                         acc))
+  if (!dense::accumulate(S, W, maps, flags, M, N, K, splits, slabs_per_split,
+                         sm, acc))
     return;                             // the producer warp
-  if (gridDim.z > 1) {
+  if (splits > 1) {
     dense::store(part + (size_t)blockIdx.z * M * N, M, N, acc);
     return;
   }
+  lif = cell_lif(lif, (int)blockIdx.z, M, N);
 #pragma unroll
   for (int i = 0; i < dense::kRowsPerWarp; ++i) {
     const int r = dense::row_of(i);
@@ -132,30 +147,39 @@ spike_gemm_lif_split_kernel(const float* __restrict__ S,
   }
 }
 
+// Grid (outputs, cells): the cell's splits, added in ascending order, then
+// its epilogue.
 __global__ void __launch_bounds__(256)
 spike_gemm_lif_reduce_kernel(const float* __restrict__ part, Lif lif,
-                             int splits, int N, size_t mn) {
+                             int splits, int M, int N) {
+  const size_t mn = (size_t)M * N;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  part += (size_t)blockIdx.y * splits * mn;
   if (i < mn)
-    lif_update(lif, dense::sum_splits(part, splits, mn, i), (int)(i % N), i);
+    lif_update(cell_lif(lif, (int)blockIdx.y, M, N),
+               dense::sum_splits(part, splits, mn, i), (int)(i % N), i);
 }
 
 static inline bool aligned16(const void* p) {
   return ((uintptr_t)p & 15u) == 0;
 }
 
-// `splits` ranges of `slabs_per_split` slabs of K (kernels/spike_gemm.py:
-// split_plan); with more than one, `part` holds splits x M x N floats.
-// Launches on `stream` and returns the first CUDA error (0 on success).
+// `cells` steps, each over `splits` ranges of `slabs_per_split` slabs of K
+// (kernels/spike_gemm.py:split_plan): S cells x M x K, W cells x K x N,
+// flags cells x ceil(M/BM) x ceil(K/BK), bias cells x N, the membranes
+// cells x M x N; with more than one split, `part` holds cells x splits x M
+// x N floats.  Launches on `stream` and returns the first CUDA error (0 on
+// success).
 extern "C" int spike_gemm_lif_launch(const void* S, const void* W,
                                      const void* flags, const void* bias,
                                      const void* u_prev, const void* s_prev,
                                      void* part, void* u_out, void* s_out,
-                                     int M, int N, int K, int splits,
-                                     int slabs_per_split, float beta,
-                                     float thr, int subtract_reset,
-                                     void* stream) {
-  if (M == 0 || N == 0) return (int)cudaSuccess;
+                                     int cells, int M, int N, int K,
+                                     int splits, int slabs_per_split,
+                                     float beta, float thr,
+                                     int subtract_reset, void* stream) {
+  if (cells == 0 || M == 0 || N == 0) return (int)cudaSuccess;
+  if ((long long)cells * splits > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int vec = N % 4 == 0 && aligned16(bias) && aligned16(u_prev) &&
                   aligned16(s_prev) && aligned16(u_out) && aligned16(s_out);
@@ -163,18 +187,20 @@ extern "C" int spike_gemm_lif_launch(const void* S, const void* W,
                 (const float*)s_prev, (float*)u_out, (float*)s_out, beta, thr,
                 subtract_reset, vec};
   dense::Maps maps;
-  cudaError_t err = dense::host_maps(&maps, S, W, M, N, K);
+  cudaError_t err = dense::host_maps(&maps, S, W, cells, M, N, K);
   if (err == cudaSuccess)
     err = dense::allow_smem<spike_gemm_lif_split_kernel>();
   if (err != cudaSuccess) return (int)err;
-  spike_gemm_lif_split_kernel<<<dense::grid(M, N, splits), dense::kThreads,
-                                dense::kSmemBytes, st>>>(
+  spike_gemm_lif_split_kernel<<<dense::grid(cells, M, N, splits),
+                                dense::kThreads, dense::kSmemBytes, st>>>(
       (const float*)S, (const float*)W, maps, (const int*)flags,
-      (float*)part, lif, M, N, K, slabs_per_split);
+      (float*)part, lif, M, N, K, splits, slabs_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const size_t mn = (size_t)M * N;
-  spike_gemm_lif_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-      (const float*)part, lif, splits, N, mn);
+  spike_gemm_lif_reduce_kernel<<<dim3((unsigned)((mn + 255) / 256),
+                                      (unsigned)cells),
+                                 256, 0, st>>>((const float*)part, lif,
+                                               splits, M, N);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,17 @@ kernels and on the CPU as their plain versions (there the conv dS is the
 matrix dS in patch space folded back by ``conv_col2im``).  dS runs only
 where ``ctx.needs_input_grad`` asks for it (a net's input spikes need
 none).
+
+A cell axis.  A DSE slab (``distributed/cellstack.py``) trains C cells of
+one shape at once, each with its own weights.  Every op the model's paths
+call (``spike_gemm``, ``spike_conv``, the four backward products,
+``spike_gemm_lif_step`` and the two train Functions) also takes its
+operands with a leading cell axis: on the card one launch serves the slab,
+each cell on the solo shape's plan, so each cell's result is the solo
+call's bit for bit; on the CPU the plain version runs per cell on the solo
+shape.  Flags are per cell, (C, ...): a tile never mixes two cells.  The
+bias gradient of the fused step is reduced per cell over the solo shape
+(``cell_sum_to``), as autograd reduces a solo one.
 """
 from __future__ import annotations
 
@@ -35,7 +46,7 @@ from repro_torch.kernels import spike_conv as conv_kernel
 from repro_torch.kernels import spike_gemm as gemm_kernel
 from repro_torch.kernels import spike_gemm_bwd as bwd_kernel
 from repro_torch.kernels import spike_gemm_fused as fused_kernel
-from repro_torch.kernels.build import TILE, tile_grid
+from repro_torch.kernels.build import TILE, cell_lead, tile_grid
 from repro_torch.kernels.spike_conv import conv_out_size
 
 #: Kernel name -> (its binding module, the name of its launch counter).
@@ -67,6 +78,32 @@ def _pad_to(x: torch.Tensor, mults: tuple[int, ...]) -> torch.Tensor:
     for p in reversed(pads):              # F.pad lists the last dim first
         flat += [0, p]
     return F.pad(x, flat)
+
+
+def _per_cell(fn, *operands, **kw) -> torch.Tensor:
+    """A plain version over a slab: ``fn`` on each cell's operands at the
+    solo shape, stacked.  CPU tensors only (``ops`` sends CUDA tensors to
+    the kernels)."""
+    return torch.stack([fn(*(o[c] for o in operands), **kw)
+                        for c in range(operands[0].shape[0])])
+
+
+def _solo_view(x: torch.Tensor) -> torch.Tensor:
+    """A cell's slice as a solo tensor of its shape lies: contiguous, and on
+    16 bytes (a slice of a slab whose cell is not whole float4s is copied),
+    so that a reduction over it takes the solo call's vectorized path and
+    sums in the solo call's order."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def cell_sum_to(g: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """Per cell of a slab ``g`` (C, ...), ``g[c].sum_to_size(shape)``: the
+    reduction autograd runs for a solo broadcast operand of ``shape``, on
+    the solo shape, so each cell's sum is the solo sum bit for bit (one
+    (C, ...) reduction need not sum in that order)."""
+    return torch.stack([_solo_view(g[c]).sum_to_size(shape)
+                        for c in range(g.shape[0])])
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -108,8 +145,11 @@ def penc_compact(spikes: torch.Tensor, capacity: int
 
 def block_flags(spikes: torch.Tensor, *, block_m: int = TILE["block_m"],
                 block_k: int = TILE["block_k"]) -> torch.Tensor:
-    """(ceil(M/block_m), ceil(K/block_k)) int32 occupancy of ``spikes``."""
-    s = _pad_to(spikes, (block_m, block_k))
+    """(ceil(M/block_m), ceil(K/block_k)) int32 occupancy of (M, K)
+    ``spikes``; (C, ...) for a slab of C cells, each cell's tiles its own
+    (a cell's ragged last tile row is padded inside the cell)."""
+    lead = cell_lead(spikes, 2, "block_flags")
+    s = _pad_to(spikes, (1,) * len(lead) + (block_m, block_k))
     return ref.block_flags_ref(s, block_m, block_k)
 
 
@@ -120,10 +160,12 @@ def cotangent_block_flags(g: torch.Tensor) -> torch.Tensor:
     stages itself; these flags are only checked).  Not ``block_flags``: a
     tile whose entries cancel to a zero sum still holds work."""
     bm, bk = TILE["block_m"], TILE["block_k"]
-    return ref.block_flags_any_ref(_pad_to(g, (bm, bk)), bm, bk)
+    lead = cell_lead(g, 2, "cotangent_block_flags")
+    return ref.block_flags_any_ref(_pad_to(g, (1,) * len(lead) + (bm, bk)),
+                                   bm, bk)
 
 
-def _check_flags(flags: torch.Tensor, want: tuple[int, int],
+def _check_flags(flags: torch.Tensor, want: tuple[int, ...],
                  what: str) -> None:
     if tuple(flags.shape) != want:
         raise ValueError(
@@ -135,24 +177,29 @@ def _check_flags(flags: torch.Tensor, want: tuple[int, int],
 
 def spike_gemm(spikes: torch.Tensor, weights: torch.Tensor, *,
                flags: torch.Tensor = None) -> torch.Tensor:
-    """Sparsity-aware ``S @ W`` with tile-level spike skipping.
+    """Sparsity-aware ``S @ W`` with tile-level spike skipping; a slab of C
+    products with a leading cell axis on both operands.
 
     ``flags``: optional precomputed ``block_flags(spikes)``."""
+    lead = cell_lead(spikes, 2, "spike_gemm")
     if flags is None:
         flags = block_flags(spikes)
-    _check_flags(flags, tile_grid(*spikes.shape),
+    _check_flags(flags, lead + tile_grid(*spikes.shape[-2:]),
                  f"spikes {tuple(spikes.shape)}")
     if _on_cuda(spikes):
         return gemm_kernel.spike_gemm_cuda(
             spikes.contiguous(), weights.contiguous(), flags.contiguous())
+    if lead:
+        return _per_cell(ref.spike_gemm_ref, spikes, weights)
     return ref.spike_gemm_ref(spikes, weights)
 
 
 def _patch_shape(s_in: torch.Tensor, weights: torch.Tensor, stride: int,
                  padding: str) -> tuple[int, int]:
-    """(rows, cols) of the im2col patch matrix of a convolution."""
-    b, h, w, _ = s_in.shape
-    kh, kw, cin, _ = weights.shape
+    """(rows, cols) of the im2col patch matrix of a convolution (of each
+    cell's, for a slab)."""
+    b, h, w, _ = s_in.shape[-4:]
+    kh, kw, cin, _ = weights.shape[-4:]
     oh, _, _ = conv_out_size(h, kh, stride, padding)
     ow, _, _ = conv_out_size(w, kw, stride, padding)
     return b * oh * ow, kh * kw * cin
@@ -161,23 +208,28 @@ def _patch_shape(s_in: torch.Tensor, weights: torch.Tensor, stride: int,
 def spike_conv(s_in: torch.Tensor, weights: torch.Tensor, *,
                stride: int = 1, padding: str = "SAME",
                flags: torch.Tensor = None) -> torch.Tensor:
-    """Sparsity-aware NHWC x HWIO convolution.  Output (B, OH, OW, F).
+    """Sparsity-aware NHWC x HWIO convolution.  Output (B, OH, OW, F); a
+    slab of C convolutions with a leading cell axis on both operands.
 
     ``flags``: the JAX package's optional occupancy of the PATCH matrix
     (``block_flags(conv_patches(s_in, ...))``), checked against its tile
     grid and otherwise unused: the kernel finds its own events in
     ``s_in``, and a CPU tensor runs the plain convolution."""
-    if weights.shape[2] != s_in.shape[-1]:
-        raise ValueError(f"weights expect {weights.shape[2]} input channels, "
-                         f"spikes have {s_in.shape[-1]}")
+    lead = cell_lead(s_in, 4, "spike_conv")
+    if weights.shape[-2] != s_in.shape[-1]:
+        raise ValueError(f"weights expect {weights.shape[-2]} input "
+                         f"channels, spikes have {s_in.shape[-1]}")
     if flags is not None:
         rows, cols = _patch_shape(s_in, weights, stride, padding)
-        _check_flags(flags, tile_grid(rows, cols),
+        _check_flags(flags, lead + tile_grid(rows, cols),
                      f"the patch matrix {(rows, cols)}")
     if _on_cuda(s_in):
         return conv_kernel.spike_conv_cuda(s_in.contiguous(),
                                            weights.contiguous(), stride,
                                            padding)
+    if lead:
+        return _per_cell(ref.spike_conv_ref, s_in, weights, stride=stride,
+                         padding=padding)
     return ref.spike_conv_ref(s_in, weights, stride=stride, padding=padding)
 
 
@@ -188,16 +240,20 @@ def spike_conv(s_in: torch.Tensor, weights: torch.Tensor, *,
 def spike_gemm_bwd_dw(spikes: torch.Tensor, g: torch.Tensor, *,
                       flags: torch.Tensor = None) -> torch.Tensor:
     """``dW[K,N] = Sᵀ @ g``; on the card only the nonzero spikes are walked.
+    A slab of C with a leading cell axis gives (C, K, N).
 
     ``flags``: optional, the FORWARD's ``block_flags(spikes)``, checked
     against the tile grid; the kernel finds the events itself (a tile the
     forward skipped holds none)."""
+    lead = cell_lead(spikes, 2, "spike_gemm_bwd_dw")
     if flags is not None:
-        _check_flags(flags, tile_grid(*spikes.shape),
+        _check_flags(flags, lead + tile_grid(*spikes.shape[-2:]),
                      f"spikes {tuple(spikes.shape)}")
     if _on_cuda(spikes):
         return bwd_kernel.spike_gemm_dw_cuda(spikes.contiguous(),
                                              g.contiguous())
+    if lead:
+        return _per_cell(ref.spike_gemm_dw_ref, spikes, g)
     return ref.spike_gemm_dw_ref(spikes, g)
 
 
@@ -205,13 +261,17 @@ def spike_conv_bwd_dw(s_in: torch.Tensor, g: torch.Tensor, *,
                       kernel_size: tuple[int, int], stride: int = 1,
                       padding: str = "SAME") -> torch.Tensor:
     """dW (KH, KW, C, F) of ``spike_conv`` from its (B, H, W, C) input
-    spikes and (B, OH, OW, F) cotangent.  On the card the kernel walks the
-    input's events; no patch matrix is built."""
+    spikes and (B, OH, OW, F) cotangent; (C, KH, KW, C, F) for a slab.  On
+    the card the kernel walks the input's events; no patch matrix is
+    built."""
     kh, kw = kernel_size
     if _on_cuda(s_in):
         return bwd_kernel.spike_conv_dw_cuda(s_in.contiguous(),
                                              g.contiguous(), kh, kw, stride,
                                              padding)
+    if cell_lead(s_in, 4, "spike_conv_bwd_dw"):
+        return _per_cell(ref.spike_conv_dw_ref, s_in, g, kh=kh, kw=kw,
+                         stride=stride, padding=padding)
     return ref.spike_conv_dw_ref(s_in, g, kh, kw, stride=stride,
                                  padding=padding)
 
@@ -219,15 +279,20 @@ def spike_conv_bwd_dw(s_in: torch.Tensor, g: torch.Tensor, *,
 def spike_gemm_bwd_ds(g: torch.Tensor, weights: torch.Tensor, *,
                       gflags: torch.Tensor = None) -> torch.Tensor:
     """``dS[M,K] = g @ Wᵀ``; on the card the all-zero chunks of the
-    cotangent are skipped.
+    cotangent are skipped (each cell's own, for a slab with a leading cell
+    axis).
 
     ``gflags``: optional ``cotangent_block_flags(g)``, checked against the
     tile grid; the kernel tests the chunks it stages itself."""
+    lead = cell_lead(g, 2, "spike_gemm_bwd_ds")
     if gflags is not None:
-        _check_flags(gflags, tile_grid(*g.shape), f"g {tuple(g.shape)}")
+        _check_flags(gflags, lead + tile_grid(*g.shape[-2:]),
+                     f"g {tuple(g.shape)}")
     if _on_cuda(g):
         return bwd_kernel.spike_gemm_ds_cuda(g.contiguous(),
                                              weights.contiguous())
+    if lead:
+        return _per_cell(ref.spike_gemm_ds_ref, g, weights)
     return ref.spike_gemm_ds_ref(g, weights)
 
 
@@ -235,15 +300,18 @@ def spike_conv_bwd_ds(g: torch.Tensor, weights: torch.Tensor,
                       x_shape: tuple[int, ...], *, stride: int = 1,
                       padding: str = "SAME") -> torch.Tensor:
     """dS (B, H, W, C) = ``x_shape`` of ``spike_conv`` from its
-    (B, OH, OW, F) cotangent and (KH, KW, C, F) weights.  On the card the
-    kernel writes it directly, with no patch-space cotangent and no col2im;
-    on the CPU it is the matrix dS in patch space folded back by
-    ``conv_col2im``."""
+    (B, OH, OW, F) cotangent and (KH, KW, C, F) weights; a slab of C with
+    a leading cell axis on all three.  On the card the kernel writes it
+    directly, with no patch-space cotangent and no col2im; on the CPU it is
+    the matrix dS in patch space folded back by ``conv_col2im``."""
     x_shape = tuple(int(s) for s in x_shape)
     if _on_cuda(g):
         return bwd_kernel.spike_conv_ds_cuda(g.contiguous(),
                                              weights.contiguous(), x_shape,
                                              stride, padding)
+    if cell_lead(g, 4, "spike_conv_bwd_ds"):
+        return _per_cell(ref.spike_conv_ds_ref, g, weights,
+                         x_shape=x_shape[1:], stride=stride, padding=padding)
     return ref.spike_conv_ds_ref(g, weights, x_shape, stride=stride,
                                  padding=padding)
 
@@ -290,7 +358,7 @@ class _SpikeConvTrain(torch.autograd.Function):
     def backward(ctx, g):
         s_in, weights = ctx.saved_tensors
         stride, padding = ctx.conv
-        kh, kw = weights.shape[:2]
+        kh, kw = weights.shape[-4:-2]
         need_s, need_w = ctx.needs_input_grad[:2]
         g = g.contiguous()
         d_s = d_w = None
@@ -322,6 +390,12 @@ class _SpikeGemmLifStep(torch.autograd.Function):
             u, s = fused_kernel.spike_gemm_lif_cuda(
                 spikes.contiguous(), weights.contiguous(), bias.contiguous(),
                 u_prev.contiguous(), s_prev.contiguous(), flags, **lif)
+        elif cell_lead(spikes, 2, "spike_gemm_lif_step"):
+            # the accumulate per cell at the solo shape, the elementwise
+            # epilogue over the slab
+            cur = _per_cell(lambda s_c, w_c, b_c: ref.spike_gemm_ref(s_c, w_c)
+                            + b_c, spikes, weights, bias)
+            u, s = ref.lif_step_ref(u_prev, s_prev, cur, **lif)
         else:
             u, s = ref.spike_gemm_lif_ref(spikes, weights, bias, u_prev,
                                           s_prev, **lif)
@@ -346,7 +420,13 @@ class _SpikeGemmLifStep(torch.autograd.Function):
             d_s_prev = -(beta * u_prev) * g
         needs = ctx.needs_input_grad
         d_s, d_w = _gemm_cotangents(needs[:2], g, spikes, weights, flags)
-        d_b = g.sum(0) if needs[2] else None
+        d_b = None
+        if needs[2] and cell_lead(g, 2, "spike_gemm_lif_step"):
+            # per cell, on the solo shape
+            d_b = torch.stack([_solo_view(g[c]).sum(0)
+                               for c in range(g.shape[0])])
+        elif needs[2]:
+            d_b = g.sum(0)
         return d_s, d_w, d_b, d_u_prev, d_s_prev, None, None, None, None
 
 
@@ -356,7 +436,8 @@ def spike_gemm_lif_step(spikes: torch.Tensor, weights: torch.Tensor,
                         threshold: float, slope: float = 25.0,
                         reset_mechanism: str = "subtract"
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Differentiable fused scan step ``(u, s) = LIF(u, s, S @ W + b)``.
+    """Differentiable fused scan step ``(u, s) = LIF(u, s, S @ W + b)``;
+    a slab of C steps with a leading cell axis on every operand.
 
     Its forward equals ``spike_gemm(S, W) + b`` composed with
     ``lif.lif_step``: the same accumulate and the same separately rounded

@@ -61,7 +61,11 @@ def spike_conv_ref(s_in: torch.Tensor, weights: torch.Tensor, *,
     kh, kw, _, _ = weights.shape
     _, ph_lo, ph_hi = conv_out_size(h, kh, stride, padding)
     _, pw_lo, pw_hi = conv_out_size(w, kw, stride, padding)
-    x = F.pad(s_in.permute(0, 3, 1, 2), (pw_lo, pw_hi, ph_lo, ph_hi))
+    # contiguous first: the convolution's algorithm (and so its order of
+    # sums) follows the layout, and a time step of pre-encoded events is a
+    # strided view
+    x = F.pad(s_in.contiguous().permute(0, 3, 1, 2),
+              (pw_lo, pw_hi, ph_lo, ph_hi))
     with torch.backends.cudnn.flags(enabled=False):
         out = F.conv2d(x, weights.permute(3, 2, 0, 1), stride=stride)
     return out.permute(0, 2, 3, 1).contiguous()
@@ -91,26 +95,28 @@ def penc_compact_ref(spikes: torch.Tensor, capacity: int
 def block_flags_ref(spikes: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
     """Per (row-tile, k-tile) occupancy: 1 where the tile's sum is > 0.
     Exact for nonnegative inputs such as spikes; ``spikes`` must already be
-    padded to tile multiples."""
-    m, k = spikes.shape
+    padded to tile multiples.  Leading dims (a slab's cell axis) are kept:
+    each matrix of the slab gets its own tiles."""
+    *lead, m, k = spikes.shape
     if m % bm or k % bk:
         raise ValueError(f"spikes {tuple(spikes.shape)} are not padded to "
                          f"({bm}, {bk}) tiles")
-    blocks = spikes.reshape(m // bm, bm, k // bk, bk)
-    return (blocks.sum(dim=(1, 3)) > 0).to(torch.int32)
+    blocks = spikes.reshape(*lead, m // bm, bm, k // bk, bk)
+    return (blocks.sum(dim=(-3, -1)) > 0).to(torch.int32)
 
 
 def block_flags_any_ref(x: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
     """Per (row-tile, column-tile) occupancy of a SIGNED matrix: 1 where any
     entry of the tile is nonzero (the gate of dS on a cotangent; a tile of
     +x and -x sums to zero and still holds work).  ``x`` must already be
-    padded to tile multiples."""
-    m, k = x.shape
+    padded to tile multiples.  Leading dims are kept, as in
+    ``block_flags_ref``."""
+    *lead, m, k = x.shape
     if m % bm or k % bk:
         raise ValueError(f"matrix {tuple(x.shape)} is not padded to "
                          f"({bm}, {bk}) tiles")
-    blocks = (x != 0).reshape(m // bm, bm, k // bk, bk)
-    return blocks.any(dim=3).any(dim=1).to(torch.int32)
+    blocks = (x != 0).reshape(*lead, m // bm, bm, k // bk, bk)
+    return blocks.any(dim=-1).any(dim=-2).to(torch.int32)
 
 
 def spike_gemm_dw_ref(spikes: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

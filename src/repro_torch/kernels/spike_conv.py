@@ -12,7 +12,10 @@ with features in (dy, dx, c) order (the HWIO filter reshaped to
 ``ref.py`` runs on it.  ``conv_col2im`` is its adjoint, with which the
 plain conv dS in ``ref.py`` folds the patch-space cotangent back to the
 input (the card's conv dS writes the input's shape directly).
-``ops.spike_conv`` is the public entry point.
+``ops.spike_conv`` is the public entry point.  A slab of C convolutions
+of one shape, each operand with a leading cell axis, runs in one launch
+with the solo shape's geometry (the cell is the kernels' outermost grid
+index).
 """
 from __future__ import annotations
 
@@ -172,7 +175,7 @@ def conv_geometry(x_shape: tuple[int, ...], w_shape: tuple[int, ...],
 @functools.cache
 def _entry():
     fn = build.library("spike_conv").spike_conv_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -182,25 +185,29 @@ def spike_conv_cuda(s_in: torch.Tensor, weights: torch.Tensor, stride: int,
                     padding: str) -> torch.Tensor:
     """The NHWC x HWIO convolution of (B, H, W, C) fp32 spikes with a
     (KH, KW, C, F) filter, (B, OH, OW, F) out, read from the spikes
-    directly; every nonzero input is an event.  Launches on the current
-    stream; raises on any operand the kernel does not take."""
+    directly; every nonzero input is an event.  Both operands may carry a
+    leading cell axis (a slab of C convolutions, one launch).  Launches on
+    the current stream; raises on any operand the kernel does not take."""
     global launches
     dev = build.cuda_device(s_in, "spike_conv")
-    if s_in.dim() != 4 or weights.dim() != 4:
+    lead = build.cell_lead(s_in, 4, "spike_conv")
+    if weights.dim() != 4 + len(lead):
         raise ValueError(f"spike_conv takes (B, H, W, C) spikes and a "
-                         f"(KH, KW, C, F) filter; got {tuple(s_in.shape)} "
+                         f"(KH, KW, C, F) filter, each with or without a "
+                         f"leading cell axis; got {tuple(s_in.shape)} "
                          f"and {tuple(weights.shape)}")
-    b, h, w, c = s_in.shape
-    kh, kw, _, f = weights.shape
-    build.check_operand(s_in, "s_in", (b, h, w, c), dev)
-    build.check_operand(weights, "weights", (kh, kw, c, f), dev)
-    geo = conv_geometry(s_in.shape, weights.shape, stride, padding)
-    out = torch.empty((b, geo[4], geo[5], f), dtype=torch.float32,
+    b, h, w, c = s_in.shape[-4:]
+    kh, kw, _, f = weights.shape[-4:]
+    build.check_operand(s_in, "s_in", lead + (b, h, w, c), dev)
+    build.check_operand(weights, "weights", lead + (kh, kw, c, f), dev)
+    geo = conv_geometry((b, h, w, c), (kh, kw, c, f), stride, padding)
+    out = torch.empty(lead + (b, geo[4], geo[5], f), dtype=torch.float32,
                       device=dev)
     if c == 0:
         return out.zero_()
     err = _entry()(s_in.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                   *geo, int(uses_strips(kw, stride)), build.stream_ptr(dev))
+                   lead[0] if lead else 1, *geo,
+                   int(uses_strips(kw, stride)), build.stream_ptr(dev))
     build.check_launch(err, "spike_conv")
     launches += 1
     return out

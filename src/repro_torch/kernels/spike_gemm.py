@@ -11,6 +11,11 @@ The kernel splits K across blocks (``csrc/dense_split.cuh``).
 kernel a ``(splits, M, N)`` fp32 workspace for the partial sums when there
 is more than one, and the kernel adds them in ascending split order.  The
 fused GEMM+LIF step (``spike_gemm_fused``) takes the same plan.
+
+A slab of C cells, ``(C, M, K) @ (C, K, N)`` with ``(C, ...)`` flags, runs
+in the same single launch: C independent products, each on the solo
+shape's plan (the cell axis never folds into M, which would change the
+splits and so the order of the sums).
 """
 from __future__ import annotations
 
@@ -51,19 +56,22 @@ def split_plan(m: int, n: int, k: int) -> tuple[int, int]:
 
 
 def workspace(m: int, n: int, plan: tuple[int, int],
-              device: torch.device) -> torch.Tensor | None:
-    """The ``(splits, m, n)`` fp32 partial sums a ``plan`` of more than one
-    split needs, or None.  The wrapper holds it until the launch is queued:
-    freed before, its memory could go to the output the kernel writes."""
+              device: torch.device, cells: tuple[int, ...] = ()
+              ) -> torch.Tensor | None:
+    """The ``cells + (splits, m, n)`` fp32 partial sums a ``plan`` of more
+    than one split needs (``cells``: ``(C,)`` for a slab), or None.  The
+    wrapper holds it until the launch is queued: freed before, its memory
+    could go to the output the kernel writes."""
     if plan[0] == 1:
         return None
-    return torch.empty((plan[0], m, n), dtype=torch.float32, device=device)
+    return torch.empty(tuple(cells) + (plan[0], m, n), dtype=torch.float32,
+                       device=device)
 
 
 @functools.cache
 def _entry():
     fn = build.library("spike_gemm").spike_gemm_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -71,23 +79,26 @@ def _entry():
 
 def spike_gemm_cuda(spikes: torch.Tensor, weights: torch.Tensor,
                     flags: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on the current stream; raises on any operand the
-    kernel does not take (device, dtype, shape, contiguity)."""
+    """Launch the kernel on the current stream: (M, K) spikes, (K, N)
+    weights, or a slab of C of each with a leading cell axis (and
+    ``(C, ...)`` flags).  Raises on any operand the kernel does not take
+    (device, dtype, shape, contiguity)."""
     global launches
     dev = build.cuda_device(spikes, "spike_gemm")
-    m, k = spikes.shape
-    n = weights.shape[1]
-    build.check_operand(spikes, "spikes", (m, k), dev)
-    build.check_operand(weights, "weights", (k, n), dev)
-    build.check_operand(flags, "flags", build.tile_grid(m, k), dev,
+    lead = build.cell_lead(spikes, 2, "spike_gemm")
+    m, k = spikes.shape[-2:]
+    n = weights.shape[-1]
+    build.check_operand(spikes, "spikes", lead + (m, k), dev)
+    build.check_operand(weights, "weights", lead + (k, n), dev)
+    build.check_operand(flags, "flags", lead + build.tile_grid(m, k), dev,
                         torch.int32)
     splits, per = plan = split_plan(m, n, k)
-    part = workspace(m, n, plan, dev)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    part = workspace(m, n, plan, dev, lead)
+    out = torch.empty(lead + (m, n), dtype=torch.float32, device=dev)
     err = _entry()(spikes.data_ptr(), weights.data_ptr(), flags.data_ptr(),
                    0 if part is None else part.data_ptr(),
-                   out.data_ptr(), m, n, k, splits, per,
-                   build.stream_ptr(dev))
+                   out.data_ptr(), lead[0] if lead else 1, m, n, k, splits,
+                   per, build.stream_ptr(dev))
     build.check_launch(err, "spike_gemm")
     launches += 1
     return out

@@ -15,9 +15,14 @@ A call counts one launch of ``spike_gemm_dw`` (the dWs) or
 ``spike_gemm_ds`` (the dSs).  ``ops.spike_gemm_bwd_dw``,
 ``ops.spike_conv_bwd_dw``, ``ops.spike_gemm_bwd_ds`` and
 ``ops.spike_conv_bwd_ds`` are the public entry points and send CPU tensors
-to the plain versions in ``ref.py``.  Which TPU kernel each replaces, what
-bounds it on the H100 and what its design does about that: the header of
-``csrc/spike_gemm_bwd.cu``.
+to the plain versions in ``ref.py``.  Every wrapper also takes a slab of C
+cells of one shape, each operand with a leading cell axis, in one launch:
+the cell is the kernels' outermost grid index and each cell runs the solo
+shape's plan (the conv dW's splits, which fix its order of sums, above
+all); only the number of blocks a cell gets, which no sum depends on,
+shrinks so that the slab stays about one wave.  Which TPU kernel each
+replaces, what bounds it on the H100 and what its design does about that:
+the header of ``csrc/spike_gemm_bwd.cu``.
 """
 from __future__ import annotations
 
@@ -57,19 +62,20 @@ DS_CH = 32 + 4
 DS_BLOCKS_PER_SM = 1
 
 
-def dw_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
+def dw_plan(m: int, k: int, n: int, cells: int = 1
+            ) -> tuple[int, int, int]:
     """(f4, blocks along K, blocks along N) of a dense dW: a block owns
     128 * f4 columns of N, all of them up to 512 (a lane walks each event
     for f4 float4s of g, so the walk's bookkeeping is shared by more
-    FMAs), and about one wave of blocks walks the strips of K.  The sums do
-    not depend on the plan."""
+    FMAs), and about one wave of blocks walks the strips of K (a slab of
+    ``cells`` shares the wave).  The sums do not depend on the plan."""
     f4 = 4 if n > 256 else 2 if n > 128 else 1
     slices = max(1, -(-n // (128 * f4)))
     strips = max(1, -(-k // DW_STRIP))
     smem = 4 * 64 * (128 * f4 + 2 * (DW_STRIP + 1))
     per_sm = max(1, min(2048 // DW_THREADS,
                         spike_conv.SM_SMEM // (smem + 1024)))
-    return f4, max(1, min(strips, SMS * per_sm // slices)), slices
+    return f4, max(1, min(strips, SMS * per_sm // (slices * cells))), slices
 
 
 def ds_plan(m: int, k: int) -> tuple[bool, int, int]:
@@ -102,7 +108,8 @@ def ds_plane(kh: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def conv_ds_plan(x_shape: tuple[int, ...], w_shape: tuple[int, ...],
-                 stride: int, padding: str) -> tuple[int, ...]:
+                 stride: int, padding: str, cells: int = 1
+                 ) -> tuple[int, ...]:
     """The ints a conv layer's dS launches with: (B, H, W, C, OH, OW, F,
     KH, KW, stride, pad_top, pad_left, TR, TW, shared-memory bytes, strip,
     blocks along the input's tiles or pixels), for (B, H, W, C) input
@@ -114,7 +121,8 @@ def conv_ds_plan(x_shape: tuple[int, ...], w_shape: tuple[int, ...],
     4-byte words: W (KH·3·F·36), the g halo (F·``ds_plane(KH)``) and its
     busy pixels ((DS_ROWS+KH-1)·36).  Any other layer, or one whose block
     does not fit, takes the pixel kernel (TR = TW = shared memory = strip =
-    0).  Neither kernel's sums depend on the plan."""
+    0).  A slab of ``cells`` shares the wave of blocks.  Neither kernel's
+    sums depend on the plan."""
     geo = spike_conv.conv_geometry(x_shape, w_shape, stride, padding)
     b, h, w, c = x_shape
     kh, kw, _, f = w_shape
@@ -127,9 +135,9 @@ def conv_ds_plan(x_shape: tuple[int, ...], w_shape: tuple[int, ...],
         ntiles = b * -(-h // DS_ROWS) * -(-w // DS_STRIP)
         per_sm = max(1, min(DS_BLOCKS_PER_SM,
                             spike_conv.SM_SMEM // (smem + 1024)))
-        blocks = min(ntiles, SMS * per_sm // chunks)
+        blocks = min(ntiles, SMS * per_sm // (chunks * cells))
         return head + (DS_ROWS, DS_STRIP, smem, 1, max(1, blocks))
-    blocks = min(-(-b * h * w // 8), SMS * 8 // chunks)
+    blocks = min(-(-b * h * w // 8), SMS * 8 // (chunks * cells))
     return head + (0, 0, 0, 0, max(1, blocks))
 
 
@@ -141,7 +149,7 @@ def _aligned(*tensors: torch.Tensor) -> bool:
 @functools.cache
 def _dw_entry():
     fn = build.library("spike_gemm_bwd").spike_gemm_dw_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -150,7 +158,7 @@ def _dw_entry():
 @functools.cache
 def _ds_entry():
     fn = build.library("spike_gemm_bwd").spike_gemm_ds_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -159,7 +167,7 @@ def _ds_entry():
 @functools.cache
 def _conv_dw_entry():
     fn = build.library("spike_gemm_bwd").spike_conv_dw_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -168,38 +176,48 @@ def _conv_dw_entry():
 @functools.cache
 def _conv_ds_entry():
     fn = build.library("spike_gemm_bwd").spike_conv_ds_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _matrices(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
-    if a.dim() != 2 or b.dim() != 2:
-        raise ValueError(f"{what} takes two matrices; got "
-                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+def _matrices(what: str, a: torch.Tensor, b: torch.Tensor
+              ) -> tuple[int, ...]:
+    """The slab's lead, ``()`` or ``(C,)``, of two matrices that share it."""
+    lead = build.cell_lead(a, 2, what)
+    if b.dim() != 2 + len(lead):
+        raise ValueError(f"{what} takes two matrices, or two slabs of them; "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    return lead
+
+
+def _cells(lead: tuple[int, ...]) -> int:
+    return lead[0] if lead else 1
 
 
 def spike_gemm_dw_cuda(spikes: torch.Tensor, g: torch.Tensor
                        ) -> torch.Tensor:
     """``spikes.T @ g`` for (M, K) spikes and an (M, N) cotangent, walking
-    the nonzero spikes.  Launches on the current stream; raises on any
-    operand the kernel does not take."""
+    the nonzero spikes; or for a slab of C of each, (C, K, N) out.  Launches
+    on the current stream; raises on any operand the kernel does not
+    take."""
     global dw_launches
     dev = build.cuda_device(spikes, "spike_gemm_dw")
-    _matrices("spike_gemm_dw", spikes, g)
-    m, k = spikes.shape
-    n = g.shape[1]
-    build.check_operand(spikes, "spikes", (m, k), dev)
-    build.check_operand(g, "g", (m, n), dev)
-    f4, blocks, slices = dw_plan(m, k, n)
+    lead = _matrices("spike_gemm_dw", spikes, g)
+    m, k = spikes.shape[-2:]
+    n = g.shape[-1]
+    build.check_operand(spikes, "spikes", lead + (m, k), dev)
+    build.check_operand(g, "g", lead + (m, n), dev)
+    f4, blocks, slices = dw_plan(m, k, n, _cells(lead))
     if slices > 65535:
         raise ValueError(f"spike_gemm_dw takes N up to {65535 * 512}; "
                          f"got {n}")
-    out = torch.empty((k, n), dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (k, n), dtype=torch.float32, device=dev)
     vec = n % 4 == 0 and _aligned(g, out)
-    err = _dw_entry()(spikes.data_ptr(), g.data_ptr(), out.data_ptr(), m, n,
-                      k, f4, int(vec), blocks, build.stream_ptr(dev))
+    err = _dw_entry()(spikes.data_ptr(), g.data_ptr(), out.data_ptr(),
+                      _cells(lead), m, n, k, f4, int(vec), blocks,
+                      build.stream_ptr(dev))
     build.check_launch(err, "spike_gemm_dw")
     dw_launches += 1
     return out
@@ -208,32 +226,36 @@ def spike_gemm_dw_cuda(spikes: torch.Tensor, g: torch.Tensor
 def spike_conv_dw_cuda(s_in: torch.Tensor, g: torch.Tensor, kh: int,
                        kw: int, stride: int, padding: str) -> torch.Tensor:
     """dW (KH, KW, C, F) of a convolution from its (B, H, W, C) fp32 input
-    spikes and (B, OH, OW, F) fp32 cotangent.  Launches on the current
-    stream; raises on any operand the kernel does not take."""
+    spikes and (B, OH, OW, F) fp32 cotangent; or of a slab of C of them,
+    (C, KH, KW, C, F), each cell split as the solo shape.  Launches on the
+    current stream; raises on any operand the kernel does not take."""
     global dw_launches
     dev = build.cuda_device(s_in, "spike_conv_dw")
-    if s_in.dim() != 4 or g.dim() != 4:
+    lead = build.cell_lead(s_in, 4, "spike_conv_dw")
+    if g.dim() != 4 + len(lead):
         raise ValueError(f"spike_conv_dw takes (B, H, W, C) spikes and a "
-                         f"(B, OH, OW, F) cotangent; got "
+                         f"(B, OH, OW, F) cotangent, each with or without "
+                         f"a leading cell axis; got "
                          f"{tuple(s_in.shape)} and {tuple(g.shape)}")
-    b, h, w, c = s_in.shape
+    b, h, w, c = s_in.shape[-4:]
     f = g.shape[-1]
-    geo = spike_conv.conv_geometry(s_in.shape, (kh, kw, c, f), stride,
+    geo = spike_conv.conv_geometry((b, h, w, c), (kh, kw, c, f), stride,
                                    padding, dw=True)
     oh, ow, tr, tw = geo[4], geo[5], geo[12], geo[13]
-    build.check_operand(s_in, "s_in", (b, h, w, c), dev)
-    build.check_operand(g, "g", (b, oh, ow, f), dev)
+    build.check_operand(s_in, "s_in", lead + (b, h, w, c), dev)
+    build.check_operand(g, "g", lead + (b, oh, ow, f), dev)
     warps, splits, per = conv_dw_plan(b * -(-oh // tr) * -(-ow // tw),
                                       kh * kw * -(-c // 32), geo[-1])
-    out = torch.empty((kh, kw, c, f), dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (kh, kw, c, f), dtype=torch.float32,
+                      device=dev)
     if c == 0:
         return out
-    part = (torch.empty((splits, kh * kw * c * f), dtype=torch.float32,
-                        device=dev) if splits > 1 else out)
+    part = (torch.empty(lead + (splits, kh * kw * c * f),
+                        dtype=torch.float32, device=dev)
+            if splits > 1 else out)
     err = _conv_dw_entry()(s_in.data_ptr(), g.data_ptr(), part.data_ptr(),
-                           out.data_ptr(), *geo[:-1], warps, splits, per,
-                           geo[-1],
-                           build.stream_ptr(dev))
+                           out.data_ptr(), _cells(lead), *geo[:-1], warps,
+                           splits, per, geo[-1], build.stream_ptr(dev))
     build.check_launch(err, "spike_conv_dw")
     dw_launches += 1
     return out
@@ -242,23 +264,25 @@ def spike_conv_dw_cuda(s_in: torch.Tensor, g: torch.Tensor, kh: int,
 def spike_gemm_ds_cuda(g: torch.Tensor, weights: torch.Tensor
                        ) -> torch.Tensor:
     """``g @ weights.T`` for an (M, N) cotangent and (K, N) weights,
-    skipping the all-zero chunks of g.  Launches on the current stream;
+    skipping the all-zero chunks of g; or for a slab of C of each, each
+    cell gated on its own cotangent.  Launches on the current stream;
     raises on any operand the kernel does not take."""
     global ds_launches
     dev = build.cuda_device(g, "spike_gemm_ds")
-    _matrices("spike_gemm_ds", g, weights)
-    m, n = g.shape
-    k = weights.shape[0]
-    build.check_operand(g, "g", (m, n), dev)
-    build.check_operand(weights, "weights", (k, n), dev)
+    lead = _matrices("spike_gemm_ds", g, weights)
+    m, n = g.shape[-2:]
+    k = weights.shape[-2]
+    build.check_operand(g, "g", lead + (m, n), dev)
+    build.check_operand(weights, "weights", lead + (k, n), dev)
     large, _, k_blocks = ds_plan(m, k)
     if k_blocks > 65535:
         raise ValueError(f"spike_gemm_ds takes at most 65535 blocks along "
                          f"K; K = {k} needs {k_blocks}")
-    out = torch.empty((m, k), dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (m, k), dtype=torch.float32, device=dev)
     vec = n % 4 == 0 and _aligned(g, weights)
-    err = _ds_entry()(g.data_ptr(), weights.data_ptr(), out.data_ptr(), m, k,
-                      n, int(large), int(vec), build.stream_ptr(dev))
+    err = _ds_entry()(g.data_ptr(), weights.data_ptr(), out.data_ptr(),
+                      _cells(lead), m, k, n, int(large), int(vec),
+                      build.stream_ptr(dev))
     build.check_launch(err, "spike_gemm_ds")
     ds_launches += 1
     return out
@@ -269,29 +293,35 @@ def spike_conv_ds_cuda(g: torch.Tensor, weights: torch.Tensor,
                        padding: str) -> torch.Tensor:
     """dS (B, H, W, C) = ``x_shape`` of a convolution from its (B, OH, OW,
     F) fp32 cotangent and (KH, KW, C, F) fp32 weights, written directly:
-    no patch-space cotangent and no col2im.  Launches on the current
-    stream; raises on any operand the kernel does not take."""
+    no patch-space cotangent and no col2im; or of a slab of C of them, each
+    operand and ``x_shape`` with a leading cell axis.  Launches on the
+    current stream; raises on any operand the kernel does not take."""
     global ds_launches
     dev = build.cuda_device(g, "spike_conv_ds")
     x_shape = tuple(int(s) for s in x_shape)
-    if g.dim() != 4 or weights.dim() != 4 or len(x_shape) != 4:
+    lead = build.cell_lead(g, 4, "spike_conv_ds")
+    if weights.dim() != 4 + len(lead) or len(x_shape) != 4 + len(lead) \
+            or x_shape[:len(lead)] != lead \
+            or tuple(weights.shape[:len(lead)]) != lead:
         raise ValueError(f"spike_conv_ds takes a (B, OH, OW, F) cotangent, "
                          f"(KH, KW, C, F) weights and a (B, H, W, C) input "
-                         f"shape; got {tuple(g.shape)}, "
+                         f"shape, all with or all without a leading cell "
+                         f"axis; got {tuple(g.shape)}, "
                          f"{tuple(weights.shape)} and {x_shape}")
-    b, h, w, c = x_shape
-    kh, kw, _, f = weights.shape
-    if weights.shape[2] != c:
-        raise ValueError(f"weights expect {weights.shape[2]} input channels, "
-                         f"the input has {c}")
-    plan = conv_ds_plan(x_shape, tuple(weights.shape), stride, padding)
-    build.check_operand(g, "g", (b, plan[4], plan[5], f), dev)
-    build.check_operand(weights, "weights", (kh, kw, c, f), dev)
+    b, h, w, c = x_shape[-4:]
+    kh, kw, _, f = weights.shape[-4:]
+    if weights.shape[-2] != c:
+        raise ValueError(f"weights expect {weights.shape[-2]} input "
+                         f"channels, the input has {c}")
+    plan = conv_ds_plan((b, h, w, c), (kh, kw, c, f), stride, padding,
+                        _cells(lead))
+    build.check_operand(g, "g", lead + (b, plan[4], plan[5], f), dev)
+    build.check_operand(weights, "weights", lead + (kh, kw, c, f), dev)
     out = torch.empty(x_shape, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     err = _conv_ds_entry()(g.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                           *plan, build.stream_ptr(dev))
+                           _cells(lead), *plan, build.stream_ptr(dev))
     build.check_launch(err, "spike_conv_ds")
     ds_launches += 1
     return out

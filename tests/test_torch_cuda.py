@@ -556,3 +556,143 @@ def test_cuda_new_wrappers_refuse_what_the_kernels_cannot_take(cuda):
         penc_kernel.penc_compact_cuda(x.t(), 4)
     with pytest.raises(ValueError, match="capacity"):
         penc_kernel.penc_compact_cuda(x, -1)
+
+
+# ---- the cell axis (a DSE slab of C cells of one shape) -------------------
+#
+# Each case stacks C = 3 cells with their own weights and spike densities;
+# one call must be one counted launch for the whole slab, and each cell's
+# slice must equal a solo launch on that cell's operands and the plain
+# version bit for bit (grid operands).  Shapes whose M or B is not a
+# multiple of 32 check that no flag tile mixes two cells.
+
+CELL_DENSITIES = (0.0, 0.05, 0.3)
+
+
+def _cell_stack(make, densities=CELL_DENSITIES):
+    return torch.stack([make(i, d) for i, d in enumerate(densities)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(70, 1000, 130), (45, 33, 7),
+                                   (64, 1024, 64), (64, 32768, 512)])
+def test_cuda_cell_axis_dense_forward(cuda, m, k, n):
+    rng = np.random.default_rng(30)
+    s = _cell_stack(lambda i, d: _t(_spikes(rng, (m, k), d))).to(cuda)
+    w = _cell_stack(lambda i, d: _t(_grid_weights(rng, (k, n), 0.05))).to(
+        cuda)
+    b = _cell_stack(lambda i, d: _t(_grid_weights(rng, (n,)))).to(cuda)
+    u0 = _cell_stack(lambda i, d: _t(_grid_weights(rng, (m, n), 1.0))).to(
+        cuda)
+    s0 = _cell_stack(lambda i, d: _t(_spikes(rng, (m, n), 0.3))).to(cuda)
+    flags = ops.block_flags(s)
+    assert flags.shape == (3,) + spike_gemm.build.tile_grid(m, k)
+    for c in range(3):
+        assert torch.equal(flags[c], ops.block_flags(s[c]))
+    before = spike_gemm.launches
+    got = ops.spike_gemm(s, w)
+    torch.cuda.synchronize()
+    assert spike_gemm.launches == before + 1
+    for c in range(3):
+        assert torch.equal(got[c], ops.spike_gemm(s[c], w[c]))
+        assert torch.equal(got[c], ref.spike_gemm_ref(s[c], w[c]))
+    for reset in ("subtract", "zero"):
+        kw = dict(beta=0.95, threshold=1.0, reset_mechanism=reset)
+        before = spike_gemm_fused.launches
+        u, sp = ops.spike_gemm_lif_step(s, w, b, u0, s0, **kw)
+        torch.cuda.synchronize()
+        assert spike_gemm_fused.launches == before + 1
+        for c in range(3):
+            solo = ops.spike_gemm_lif_step(s[c], w[c], b[c], u0[c], s0[c],
+                                           **kw)
+            plain = ref.spike_gemm_lif_ref(s[c], w[c], b[c], u0[c], s0[c],
+                                           **kw)
+            assert torch.equal(u[c], solo[0]) and torch.equal(sp[c], solo[1])
+            assert torch.equal(u[c], plain[0])
+            assert torch.equal(sp[c], plain[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(70, 1000, 130), (45, 33, 7),
+                                   (64, 32768, 512), (130, 300, 68)])
+def test_cuda_cell_axis_dense_backward(cuda, m, k, n):
+    rng = np.random.default_rng(31)
+    s = _cell_stack(lambda i, d: _t(_spikes(rng, (m, k), d))).to(cuda)
+    g = _cell_stack(lambda i, d: _t(_cotangent(rng, (m, n), 1 - d))).to(cuda)
+    w = _cell_stack(lambda i, d: _t(_grid_weights(rng, (k, n)))).to(cuda)
+    dw_before = spike_gemm_bwd.dw_launches
+    ds_before = spike_gemm_bwd.ds_launches
+    dw = ops.spike_gemm_bwd_dw(s, g)
+    ds = ops.spike_gemm_bwd_ds(g, w)
+    torch.cuda.synchronize()
+    assert spike_gemm_bwd.dw_launches == dw_before + 1
+    assert spike_gemm_bwd.ds_launches == ds_before + 1
+    for c in range(3):
+        assert torch.equal(dw[c], ops.spike_gemm_bwd_dw(s[c], g[c]))
+        assert torch.equal(dw[c], ref.spike_gemm_dw_ref(s[c], g[c]))
+        assert torch.equal(ds[c], ops.spike_gemm_bwd_ds(g[c], w[c]))
+        assert torch.equal(ds[c], ref.spike_gemm_ds_ref(g[c], w[c]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", CONV_LAYERS[:5])
+def test_cuda_cell_axis_conv(cuda, layer):
+    """The conv forward, dW and dS on a slab of 3 cells (the ragged layers
+    and the dvs-conv cell's two convs)."""
+    cells = [_conv_operands(cuda, layer, d, 40 + i)
+             for i, d in enumerate(CELL_DENSITIES)]
+    conv = cells[0][3]
+    x, w, g = (torch.stack([cell[j] for cell in cells]) for j in range(3))
+    k = w.shape[1]
+    counts = (spike_conv.launches, spike_gemm_bwd.dw_launches,
+              spike_gemm_bwd.ds_launches)
+    out = ops.spike_conv(x, w, **conv)
+    dw = ops.spike_conv_bwd_dw(x, g, kernel_size=(k, k), **conv)
+    ds = ops.spike_conv_bwd_ds(g, w, tuple(x.shape), **conv)
+    torch.cuda.synchronize()
+    assert (spike_conv.launches, spike_gemm_bwd.dw_launches,
+            spike_gemm_bwd.ds_launches) == tuple(n + 1 for n in counts)
+    for c in range(3):
+        xc, wc, gc = x[c], w[c], g[c]
+        assert torch.equal(out[c], ops.spike_conv(xc, wc, **conv))
+        assert torch.equal(out[c], cells[c][4])
+        assert torch.equal(dw[c], ops.spike_conv_bwd_dw(
+            xc, gc, kernel_size=(k, k), **conv))
+        assert torch.equal(dw[c], ref.spike_conv_dw_ref(xc, gc, k, k,
+                                                        **conv))
+        assert torch.equal(ds[c], ops.spike_conv_bwd_ds(
+            gc, wc, tuple(xc.shape), **conv))
+        assert torch.equal(ds[c], ref.spike_conv_ds_ref(
+            gc, wc, tuple(xc.shape), **conv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gemm", "conv", "fused"])
+def test_cuda_cell_axis_autograd_step_equals_solo(cuda, which):
+    """One forward and backward of each train Function on a slab of 3
+    cells equals, cell by cell, the solo step on the card bit for bit."""
+    rng = np.random.default_rng(32)
+    if which == "gemm":
+        args = [[_spikes(rng, (45, 300), d), _grid_weights(rng, (300, 20))]
+                for d in CELL_DENSITIES]
+        cots = [[_cotangent(rng, (45, 20))] for _ in CELL_DENSITIES]
+        fn = ops.spike_gemm_train
+    elif which == "conv":
+        args = [[_spikes(rng, (3, 16, 16, 8), d),
+                 _grid_weights(rng, (3, 3, 8, 16))] for d in CELL_DENSITIES]
+        cots = [[_cotangent(rng, (3, 16, 16, 16))] for _ in CELL_DENSITIES]
+        fn = ops.spike_conv_train
+    else:
+        args = [[_spikes(rng, (45, 200), d), _grid_weights(rng, (200, 30)),
+                 _grid_weights(rng, (30,)), _grid_weights(rng, (45, 30), 1.0),
+                 _spikes(rng, (45, 30), 0.3)] for d in CELL_DENSITIES]
+        cots = [[_cotangent(rng, (45, 30)), np.zeros((45, 30), np.float32)]
+                for _ in CELL_DENSITIES]
+        fn = lambda *a: ops.spike_gemm_lif_step(
+            *a, beta=0.5, threshold=1.0, reset_mechanism="subtract")
+    stacked = _backward_step(fn, [np.stack(a) for a in zip(*args)],
+                             [np.stack(c) for c in zip(*cots)], cuda)
+    for c in range(3):
+        solo = _backward_step(fn, args[c], cots[c], cuda)
+        for a, b in zip(stacked, solo):
+            assert torch.equal(a[c], b)
