@@ -74,6 +74,21 @@ script then exits non-zero and never prints its result line):
    the serial run, with equal frontiers; the slab's and a solo miss's wall
    time and cells a minute, the slab's peak memory, and a profile of one
    slab step against one solo step (device busy share, kernels a step).
+   Then the DSE service over the fleet (6d), in another temporary root:
+   a ``DSEService(workers="cluster")`` stepping on its background thread
+   (``start``/``stop``) and two spawned ``fleet.run_worker`` processes on
+   the card; tenant alpha submits dvs-conv at T = 8, 12 and tenant beta
+   at T = 8, 16 (3 cells in 4 resolutions): both studies must complete,
+   the workers train each cell exactly once and the service's cache only
+   loads, each tenant's frontier equals an all-hit ``dse.explore`` of its
+   grid afterwards, and the T = 8 cell equals phase 6's miss bit for bit.
+   A worker SIGKILL'd once it holds the lease of seed 1 at T = 8: the
+   submitter's ``resolve_cells(workers="cluster")`` breaks the stale lease
+   and trains the cell in process with one solo miss's launches of
+   kernels 2-5 (counters set to 0 before, read after), equal to phase
+   6c's solo miss of seed 1.  Then 75 dvs-conv Adam steps under
+   ``TrainSupervisor`` (async saves every 25 steps, a failure injected at
+   step 40), equal bit for bit to 75 unsupervised steps, one restart.
 7. Time each kernel, its plain version and one library call at the main
    path's shapes on the main path's own traffic (the backward kernels on
    the operands of phase 5's middle time step), next to the least time
@@ -190,6 +205,14 @@ GRAD_RTOL = 1e-4
 # The cell driven through the torch TraceCache: the registry's dvs-conv
 # at T = 8 with its own recipe (150 Adam steps at batch 64).
 CELL_STEPS = 8
+# Phase 6d: the two tenants' dvs-conv grids, the seconds a fleet worker
+# waits on an empty spool before it exits (longer than one cell, so a
+# worker outlives the gap while the other trains the cell that unblocks
+# the next study round), and the supervised run's steps, save period and
+# injected failure.
+FLEET_TENANTS = {"alpha": (8, 12), "beta": (8, 16)}
+FLEET_IDLE_S = 20.0
+SUPERVISED = {"steps": 75, "every": 25, "fail_at": 40}
 # Published peaks of one H100 SXM at its 700 W limit (dense, no sparsity).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -351,6 +374,241 @@ def dvs_cell_launches(wl, num_steps: int) -> dict:
             "spike_gemm_ds": 3 * num_steps * wl.train_steps, **API_ONLY}
 
 
+def same_cell(a, b, what):
+    """Two cache artifacts with equal params, counts and accuracy."""
+    if not (a.accuracy == b.accuracy
+            and len(a.counts) == len(b.counts)
+            and all(np.array_equal(x, y)
+                    for x, y in zip(a.counts, b.counts))
+            and all(np.array_equal(p[k], q[k])
+                    for p, q in zip(a.params, b.params) for k in p)):
+        raise AssertionError(f"{what}: the artifacts differ")
+
+
+def fleet_phase(torch, dev, miss, solo_seed1) -> dict:
+    """Phase 6d: the DSE service over the fleet, a worker killed mid-cell,
+    the training supervisor (see the module docstring).  ``miss`` is
+    phase 6's dvs-conv miss (seed 0, T = CELL_STEPS) and ``solo_seed1``
+    phase 6c's solo miss of seed 1; the workers train on ``dev``."""
+    import multiprocessing
+    import os
+    import signal
+    from unittest import mock
+
+    from repro_torch import optim
+    from repro_torch.checkpoint import store
+    from repro_torch.core import dse, train_snn, workloads
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import cellfarm, fleet
+    from repro_torch.distributed.fault_tolerance import (SupervisorConfig,
+                                                         TrainSupervisor)
+    from repro_torch.kernels import ops
+    from repro_torch.serve import DSEService, StudyCompleted, Submission
+
+    out = {}
+    dvs = workloads.get("dvs-conv")
+    asn = {"num_steps": CELL_STEPS, "population": 1.0}
+    grid = dict(population=(1.0,), max_lhr=4, weight_bits=(4, 8))
+    ctx = multiprocessing.get_context("spawn")      # CUDA is not fork-safe
+    with tempfile.TemporaryDirectory() as root:
+        # 1. two tenants over the fleet
+        cells = f"{root}/cells"
+        stats_paths = [f"{root}/worker-{i}.json" for i in range(2)]
+        cache = workloads.TraceCache(root=cells, device=dev)
+        service = DSEService(cache, workers="cluster", max_active=2)
+        t0 = time.perf_counter()
+        service.start()
+        procs = [ctx.Process(target=fleet.run_worker, kwargs=dict(
+            root=cells, worker_id=f"fleet-{i}", device=str(dev),
+            idle_timeout=FLEET_IDLE_S, stats_path=path))
+            for i, path in enumerate(stats_paths)]
+        try:
+            for p in procs:
+                p.start()
+            handles = {t: service.submit(Submission(
+                tenant=t, name="dvs-conv", workload=dvs, num_steps=steps,
+                **grid)) for t, steps in FLEET_TENANTS.items()}
+            for t, h in handles.items():
+                if not h.wait(timeout=600):
+                    raise AssertionError(f"tenant {t}'s study did not end")
+            service_s = time.perf_counter() - t0
+            # a study still stepping may block in the fleet's wait; its
+            # daemon thread then ends with the process
+            service.stop()
+        finally:
+            for p in procs:
+                p.join(timeout=120)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        workers_s = time.perf_counter() - t0
+        stats = []
+        for path in stats_paths:
+            with open(path) as f:
+                stats.append(json.load(f))
+        kinds = {t: [type(e).__name__ for e in h.events()]
+                 for t, h in handles.items()}
+        trained = sum(s_["cells_trained"] for s_ in stats)
+        log(f"  the service over two fleet workers: both studies done in "
+            f"{service_s:.2f} s, workers exited at {workers_s:.2f} s "
+            f"(spawn and their {FLEET_IDLE_S:.0f} s idle wait included); "
+            f"{trained} cells, {trained / service_s * 60:.2f} cells a "
+            f"minute through the fleet")
+        for s_ in stats:
+            log(f"  worker {s_}")
+        for t, k in kinds.items():
+            log(f"  tenant {t}'s events: {k}")
+        for t, h in handles.items():
+            if h.status != "completed" or kinds[t][-1] != "StudyCompleted":
+                raise AssertionError(f"tenant {t}: {h.status}, {h.error}")
+        if (trained, sum(s_["cells_skipped"] for s_ in stats),
+                sum(s_["cells_failed"] for s_ in stats)) != (3, 0, 0):
+            raise AssertionError(f"expected 3 cells trained once each by "
+                                 f"the fleet, none skipped or failed: "
+                                 f"{stats}")
+        if cache.misses != 0:
+            raise AssertionError(f"the service's cache trained "
+                                 f"{cache.misses} cells itself")
+        for t, steps in FLEET_TENANTS.items():
+            again = workloads.TraceCache(root=cells, device=dev)
+            ref = dse.explore(workload=dvs, num_steps=steps, cache=again,
+                              **grid)
+            a, b = handles[t].frontier.columns, ref.frontier.columns
+            if (again.misses, again.hits) != (0, len(steps)) or \
+                    a.keys() != b.keys() or not all(
+                        np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"tenant {t}'s frontier differs from "
+                                     f"an all-hit explore of its grid")
+        first = workloads.TraceCache(root=cells, device=dev).resolve(
+            dvs, asn, seed=SEED, quant_bits=(8,))
+        same_cell(first, miss, "the fleet's T = 8 cell against phase 6's")
+        if first.quant_acc.get(8) != miss.quant_acc.get(8):
+            raise AssertionError("the fleet's T = 8 cell's 8-bit accuracy "
+                                 "differs from phase 6's")
+        log(f"  frontiers equal all-hit explores of each grid; the T = 8 "
+            f"cell equals phase 6's miss bit for bit")
+        out["service"] = {
+            "service_s": service_s, "workers_exit_s": workers_s,
+            "cells_trained": trained,
+            "cells_per_minute": trained / service_s * 60,
+            "workers": stats, "events": kinds,
+            "cache": dict(cache.stats),
+            "frontier_sizes": {t: len(h.frontier)
+                               for t, h in handles.items()}}
+
+        # 2. a worker killed mid-cell; the submitter reclaims the cell
+        killed = f"{root}/killed"
+        job = cellfarm.CellJob(dvs, asn, seed=1, quant_bits=(8,))
+        [key] = fleet.spool(killed, [job])
+        victim = ctx.Process(target=fleet.run_worker, kwargs=dict(
+            root=killed, worker_id="victim", device=str(dev),
+            idle_timeout=600))
+        t0 = time.perf_counter()
+        victim.start()
+        try:
+            while not os.path.exists(fleet._lease_path(killed, key)):
+                if not victim.is_alive() or time.perf_counter() - t0 > 300:
+                    raise AssertionError("the victim never claimed the "
+                                         "cell")
+                time.sleep(0.01)
+            claim_s = time.perf_counter() - t0
+            os.kill(victim.pid, signal.SIGKILL)
+        finally:
+            victim.join(timeout=60)
+            if victim.is_alive():
+                victim.kill()
+                victim.join()
+        if workloads.TraceCache(root=killed, device=dev).contains_key(key):
+            raise AssertionError("the victim published before the kill")
+        with mock.patch.dict(os.environ, {"REPRO_FLEET_LEASE_TTL": "1",
+                                          "REPRO_FLEET_TIMEOUT": "2"}):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            [got] = cellfarm.resolve_cells([job], killed, workers="cluster",
+                                           device=dev)
+            torch.cuda.synchronize()
+            reclaim_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+        want = dvs_cell_launches(dvs, CELL_STEPS)
+        log(f"  a worker killed {claim_s:.2f} s after its spawn, once it "
+            f"held the lease; the submitter reclaimed and trained the cell "
+            f"in {reclaim_s:.2f} s (the 2 s no-progress window included); "
+            f"launches {launches}")
+        if not got.trained or got.error is not None:
+            raise AssertionError(f"the reclaim failed: {got}")
+        if launches != want:
+            raise AssertionError(f"the reclaim launched {launches}, "
+                                 f"expected one solo miss's {want}")
+        same_cell(workloads.TraceCache(root=killed, device=dev).resolve(
+            dvs, asn, seed=1, quant_bits=(8,)), solo_seed1,
+            "the reclaimed cell against phase 6c's solo miss of seed 1")
+        out["reclaim"] = {"claim_s": claim_s, "reclaim_s": reclaim_s,
+                          "launches": launches}
+
+        # 3. the supervisor: a batch and a generator per step number, so a
+        # replay after the restore draws the bits the first pass drew
+        cfg = dvs.build(CELL_STEPS, 1.0)
+        tx = optim.adam(dvs.lr)
+        train_step = train_snn.make_train_step(cfg, tx)
+        data = dvs.make_data(CELL_STEPS)
+        it = synthetic.batches(data.x_train, data.y_train, dvs.batch_size,
+                               seed=SEED, epochs=10_000)
+        batches = [tuple(torch.as_tensor(a, device=dev) for a in next(it))
+                   for _ in range(SUPERVISED["steps"])]
+
+        def step_fn(state, step):
+            gen = torch.Generator(device=dev).manual_seed(SEED + step)
+            params, opt_state, _ = train_step(state["params"], state["opt"],
+                                              gen, *batches[step])
+            return {"params": params, "opt": opt_state}
+
+        def start():
+            params, opt_state, _ = train_snn.init_cell(cfg, tx, SEED,
+                                                       device=dev)
+            return {"params": params, "opt": opt_state}
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = start()
+        for step in range(SUPERVISED["steps"]):
+            plain = step_fn(plain, step)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        failed = []
+
+        def flaky(state, step):
+            if step == SUPERVISED["fail_at"] and not failed:
+                failed.append(step)
+                raise RuntimeError("injected failure")
+            return step_fn(state, step)
+
+        sup = TrainSupervisor(SupervisorConfig(
+            checkpoint_dir=f"{root}/supervised",
+            checkpoint_every=SUPERVISED["every"], async_save=True), start())
+        t0 = time.perf_counter()
+        final = sup.run(flaky, SUPERVISED["steps"])
+        torch.cuda.synchronize()
+        sup_s = time.perf_counter() - t0
+        log(f"  {SUPERVISED['steps']} dvs-conv Adam steps: "
+            f"{plain_s:.2f} s unsupervised, {sup_s:.2f} s supervised "
+            f"(async saves every {SUPERVISED['every']}, a failure at step "
+            f"{SUPERVISED['fail_at']}, {sup.restarts} restart)")
+        pairs = list(zip(store.leaves(plain), store.leaves(final)))
+        if sup.restarts != 1 or failed != [SUPERVISED["fail_at"]] or \
+                int(final["opt"][0].count) != SUPERVISED["steps"] or \
+                len(pairs) != len(store.leaves(start())) or not all(
+                    b.device.type == dev.type and torch.equal(a, b)
+                    for a, b in pairs):
+            raise AssertionError("the supervised run differs from the "
+                                 "unsupervised one")
+        log("  the supervised run equals the unsupervised one bit for bit")
+        out["supervisor"] = {"steps": SUPERVISED["steps"],
+                             "plain_s": plain_s, "supervised_s": sup_s,
+                             "restarts": sup.restarts}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -446,16 +704,6 @@ def main() -> int:
             raise AssertionError(f"{what}: {getattr(module, counter) - before}"
                                  f" launches for one slab, expected 1")
         return got
-
-    def same_cell(a, b, what):
-        """Two cache artifacts with equal params, counts and accuracy."""
-        if not (a.accuracy == b.accuracy
-                and len(a.counts) == len(b.counts)
-                and all(np.array_equal(x, y)
-                        for x, y in zip(a.counts, b.counts))
-                and all(np.array_equal(p[k], q[k])
-                        for p, q in zip(a.params, b.params) for k in p)):
-            raise AssertionError(f"{what}: the artifacts differ")
 
     def hold_cells(name, got, solo, plain, what):
         """Each cell of the slab outputs ``got`` equal to its solo launch
@@ -1526,7 +1774,7 @@ def main() -> int:
             if slab_launches != want:
                 raise AssertionError(f"the slab launched {slab_launches}, "
                                      f"expected one solo cell's {want}")
-            solo_s = []
+            solo_s, solos = [], {}
             for seed in slab_seeds[:2] + farm_seeds:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1536,6 +1784,7 @@ def main() -> int:
                 solo_s.append(time.perf_counter() - t0)
                 if solo.cache_hit:
                     raise AssertionError("the solo root already held it")
+                solos[seed] = solo
                 if seed in slab_seeds:
                     same_cell(stack_cache.resolve(dvs, asn, seed=seed,
                                                   quant_bits=(8,)),
@@ -1646,6 +1895,12 @@ def main() -> int:
                 + f", {len(kern)} device kernels")
         del steps, inits, slab_p
         report["slab"] = slab
+
+    # ---- 6d. the DSE service over the fleet, a killed worker, the
+    # supervisor
+    with Phase("the DSE service over the fleet, a worker killed mid-cell, "
+               "the training supervisor"):
+        report["fleet"] = fleet_phase(torch, dev, miss, solos[1])
 
     # ---- 7. timing at the main path's shapes and traffic -----------------
     layers = dict(zip(names, zip(specs, [p for p in params if p])))

@@ -1,6 +1,6 @@
-"""Atomic checkpoints of NumPy trees (lists, tuples and dicts of arrays), in
-the JAX package's on-disk format (msgpack + zstandard, or zlib where the
-zstandard package is missing).
+"""Atomic checkpoints of trees (lists, tuples and dicts) of NumPy arrays or
+tensors on any device, in the JAX package's on-disk format (msgpack +
+zstandard, or zlib where the zstandard package is missing).
 
 Layout:  <dir>/step_<N>/manifest.msgpack   (leaf metadata in tree order
                                             + compression codec)
@@ -14,17 +14,25 @@ sequences in order), so either package restores the other's checkpoints.
 Guarantees:
   * atomic publish: data is written to ``step_<N>.tmp`` and ``os.replace``d,
     so a crash mid-save never corrupts the latest checkpoint;
+  * async save: the host copy of every leaf is taken synchronously (a tensor
+    is detached and copied even on the CPU, so a later in-place update
+    cannot reach the writer); the compression and IO run on a background
+    thread;
+  * restore at ``like``'s types: tensors on each ``like`` tensor's device
+    and dtype, NumPy arrays at each ``like`` array's dtype;
   * ``keep_last`` retention.
 """
 from __future__ import annotations
 
 import os
 import shutil
+import threading
 import zlib
 from typing import Any, Optional
 
 import msgpack
 import numpy as np
+import torch
 
 try:
     import zstandard
@@ -110,7 +118,10 @@ def _unflatten(like: Tree, it) -> Tree:
         filled = {k: _unflatten(like[k], it) for k in sorted(like)}
         return {k: filled[k] for k in like}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(item, it) for item in like)
+        items = [_unflatten(item, it) for item in like]
+        # a NamedTuple (an optimizer state) takes its fields positionally
+        return (type(like)(*items) if hasattr(like, "_fields")
+                else type(like)(items))
     return None if like is None else next(it)
 
 
@@ -118,15 +129,39 @@ def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}")
 
 
+def _host_copy(leaf) -> np.ndarray:
+    """A leaf as a host array of its own: a tensor is detached and copied
+    off its device (copied on the CPU too), an array copied."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
+
+
 def save(directory: str, step: int, tree: Tree,
          keep_last: Optional[int] = None) -> str:
     """Synchronous checkpoint save.  Returns the published path."""
+    return _write(directory, step, [_host_copy(x) for x in leaves(tree)],
+                  keep_last)
+
+
+def save_async(directory: str, step: int, tree: Tree,
+               keep_last: Optional[int] = None) -> threading.Thread:
+    """Copy every leaf to the host now; compress and write on a background
+    thread, which is returned started (join it to wait for the publish)."""
+    host = [_host_copy(x) for x in leaves(tree)]
+    t = threading.Thread(target=_write, args=(directory, step, host,
+                                              keep_last), daemon=True)
+    t.start()
+    return t
+
+
+def _write(directory: str, step: int, host: list[np.ndarray],
+           keep_last: Optional[int]) -> str:
     final = _step_dir(directory, step)
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     meta, blobs = [], []
-    for arr in leaves(tree):
-        arr = np.asarray(arr)
+    for arr in host:
         # NB: np.ascontiguousarray promotes 0-d -> 1-d; record shape first
         shape = list(arr.shape)
         data = np.ascontiguousarray(arr)
@@ -167,9 +202,19 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _like_leaf(arr: np.ndarray, want):
+    """A restored leaf at ``want``'s type: a tensor on its device and dtype,
+    else a NumPy array at its dtype."""
+    if isinstance(want, torch.Tensor):
+        return torch.from_numpy(np.array(arr)).to(device=want.device,
+                                                  dtype=want.dtype)
+    return np.asarray(arr, dtype=np.asarray(want).dtype)
+
+
 def restore(directory: str, like: Tree, step: Optional[int] = None) -> Tree:
-    """Restore into the structure of ``like`` as NumPy arrays at ``like``'s
-    dtypes; raises if the leaf count or a shape differs."""
+    """Restore into the structure of ``like``: each leaf a tensor on the
+    ``like`` tensor's device and dtype, or a NumPy array at the ``like``
+    array's dtype; raises if the leaf count or a shape differs."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -192,6 +237,7 @@ def restore(directory: str, like: Tree, step: Optional[int] = None) -> Tree:
                                     ).reshape(m["shape"])
                 if tuple(arr.shape) != tuple(np.shape(w)):
                     raise ValueError(f"checkpoint leaf of shape {arr.shape} "
-                                     f"where {np.shape(w)} is expected")
-                out.append(np.asarray(arr, dtype=np.asarray(w).dtype))
+                                     f"where {tuple(np.shape(w))} is "
+                                     f"expected")
+                out.append(_like_leaf(arr, w))
     return _unflatten(like, iter(out))

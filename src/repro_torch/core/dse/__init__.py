@@ -14,7 +14,7 @@ paper's study loop over model cells trained in torch.
                    the Pareto merge, model cells resolved through the torch
                    ``workloads.TraceCache`` with a training budget in cache
                    misses, checkpoint/resume, and the cell farm
-                   (``workers=N``, ``stack=True``).
+                   (``workers=N``, ``stack=True``, ``workers="cluster"``).
 * ``engine``     — ``search``/``SearchResult``/``auto_select``, thin
                    wrappers over ``explore`` for hardware-only spaces.
 * ``coexplore``  — the cell-enumerating co-exploration front end, a thin
@@ -24,8 +24,8 @@ paper's study loop over model cells trained in torch.
                    the engine.
 
 Each module is a copy of ``repro.core.dse``'s with its imports changed;
-the one difference is that ``workers="cluster"`` (the JAX package's
-multi-host fleet) is not ported and raises ``NotImplementedError``.
+cells train on the cache's device, and ``workers="cluster"`` runs on the
+port's fleet (``repro_torch.distributed.fleet``).
 """
 from repro_torch.core.dse.coexplore import (CO_METRICS,
                                             DEFAULT_CO_OBJECTIVES,

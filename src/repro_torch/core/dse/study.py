@@ -35,12 +35,12 @@ evaluated count, budget, and cell records) and resumable via
 resume because the trace cache is content-addressed.  ``workers=N`` shards
 pending cell training across spawned processes and ``stack=True`` trains
 same-signature cells as one slab (``repro_torch.distributed.cellfarm``,
-``cellstack``), safe because the cache publish is atomic.
+``cellstack``), safe because the cache publish is atomic;
+``workers="cluster"`` spools them to lease-holding fleet workers
+(``repro_torch.distributed.fleet``).
 
 Cells train on the cache's device; the default cache is the port's own
-``TraceCache()`` (root ``REPRO_TORCH_WORKLOAD_CACHE``, the card).  The JAX
-package's multi-host fleet (``workers="cluster"``) is not ported yet and
-raises ``NotImplementedError``.
+``TraceCache()`` (root ``REPRO_TORCH_WORKLOAD_CACHE``, the card).
 """
 from __future__ import annotations
 
@@ -502,9 +502,10 @@ class Study(FrontierQueries):
     @property
     def _farming(self) -> bool:
         """True when pending cells should resolve through the farm first: a
-        usable process pool (``workers >= 2``) or slabs (``stack``)."""
-        return self.stack or (isinstance(self.workers, int)
-                              and self.workers >= 2)
+        usable process pool (``workers >= 2``), the fleet
+        (``workers="cluster"``), or slabs (``stack``)."""
+        return (self.workers == "cluster" or self.stack
+                or (isinstance(self.workers, int) and self.workers >= 2))
 
     def _farm(self, jobs: list) -> None:
         self._charge_farmed(cellfarm.resolve_cells(
@@ -513,8 +514,9 @@ class Study(FrontierQueries):
 
     def _farm_chunk(self, uniq_model_rows: np.ndarray) -> None:
         """Train this chunk's unresolved, affordable cells across worker
-        processes, or as same-signature slabs with ``stack=True``, before
-        the serial resolution loop (joint mode)."""
+        processes, as same-signature slabs with ``stack=True``, or on the
+        lease-coordinated fleet with ``workers="cluster"``, before the
+        serial resolution loop (joint mode)."""
         if not self._farming:
             return
         jobs = []
@@ -604,7 +606,8 @@ class Study(FrontierQueries):
 
     def _prefetch_cells(self) -> None:
         """Farm the cell plan's pending training across worker processes,
-        or as slabs with ``stack=True`` (cells mode); afterwards every
+        as slabs with ``stack=True``, or on the fleet with
+        ``workers="cluster"`` (cells mode); afterwards every
         prefetched cell resolves as a hit."""
         if self._prefetched or not self._farming:
             return
@@ -810,10 +813,13 @@ def explore(space: Optional[SearchSpace] = None, *,
     spawned processes on the cache's device; ``stack=True`` prefers
     training same-signature cells as one slab over farming them
     (``repro_torch.distributed.cellstack``: published cells are bit for bit
-    the solo-trained ones either way).  ``workers="cluster"`` (the JAX
-    package's multi-host fleet) raises ``NotImplementedError``: the fleet
-    is the port's next slice.  ``run=False`` returns the un-run study for
-    manual ``step()``-ing.
+    the solo-trained ones either way).  ``workers="cluster"`` spools them
+    to the cache root's job queue for any enrolled ``fleet.FleetWorker``,
+    on this or any other host, to claim by lease
+    (``repro_torch.distributed.fleet``; it blocks on fleet progress and
+    trains in process on the cache's device where there is none, so it
+    completes with zero live workers too).  ``run=False`` returns the
+    un-run study for manual ``step()``-ing.
     """
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
@@ -835,12 +841,6 @@ def explore(space: Optional[SearchSpace] = None, *,
                 or num_steps is not None or population is not None
                 or (space is not None and bool(space.model_axes)))
     if is_joint:
-        if workers == "cluster":
-            raise NotImplementedError(
-                "workers='cluster' farms cells over the multi-host fleet "
-                "(the JAX package's distributed/fleet.py), which the port "
-                "does not have yet: it is the next slice (ROADMAP §1); use "
-                "workers=N or stack=True")
         study = _build_joint(
             space, workload=workload, datasets=datasets, num_steps=num_steps,
             population=population, hw_space=hw_space, max_lhr=max_lhr,

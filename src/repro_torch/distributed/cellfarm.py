@@ -35,8 +35,9 @@ tears the pool down and rebuilds it, and both are retried up to
 ``MAX_RETRIES`` rounds before the failure ships in ``CellOutcome.error``
 for the caller to fall back on.
 
-``workers="cluster"`` (the JAX package's multi-host fleet of lease-
-coordinated workers) is not ported yet and raises ``NotImplementedError``.
+``workers="cluster"`` farms across hosts instead: the jobs spool to the
+cache root, where lease-holding ``fleet.FleetWorker`` processes train them
+(``repro_torch.distributed.fleet``).
 """
 from __future__ import annotations
 
@@ -178,6 +179,16 @@ def resolve_cells(jobs: Sequence[CellJob], root: str,
     (default: one per job, capped at the CPU count and
     ``MAX_POOL_WORKERS``).
 
+    ``workers="cluster"`` farms across *hosts* instead of processes: jobs
+    spool to ``<root>/queue/`` and any ``fleet.FleetWorker`` enrolled on
+    the shared root claims them by lease (``repro_torch.distributed.fleet``).
+    The call blocks on lease/publish progress and falls back to in-process
+    training on ``device`` for cells the fleet makes no progress on, so it
+    completes even with zero live workers.  Failed outcomes ship with
+    ``CellOutcome.error`` exactly like the process farm (the fleet path
+    has its own reclaim machinery, so the local retry loop does not
+    re-enter it); ``stack`` does not apply.
+
     ``stack=True`` routes same-signature groups through the in-process
     slab trainer first (``cellstack.resolve_stacked``): with a usable pool
     (two or more effective workers) only groups of two or more cells stack
@@ -190,22 +201,17 @@ def resolve_cells(jobs: Sequence[CellJob], root: str,
     ``CellOutcome.error`` set, so one bad cell cannot kill a study.  A
     failed stack group falls back to farming before counting as a retry.
 
-    ``workers="cluster"`` (the JAX package's multi-host fleet) raises
-    ``NotImplementedError``: the fleet is the port's next slice.  The
-    parent's own ``TraceCache`` counters are untouched; count ``trained``
-    outcomes for miss accounting."""
+    The parent's own ``TraceCache`` counters are untouched; count
+    ``trained`` outcomes for miss accounting."""
     jobs = list(jobs)
+    if not jobs:
+        return []
     if workers == "cluster":
-        raise NotImplementedError(
-            "workers='cluster' farms cells over the multi-host fleet "
-            "(the JAX package's distributed/fleet.py), which the port does "
-            "not have yet: it is the next slice (ROADMAP §1); use "
-            "workers=N or stack=True")
+        from repro_torch.distributed import fleet   # fleet imports this
+        return fleet.resolve_cluster(jobs, root, device=device)
     if isinstance(workers, str):
         raise ValueError(f"workers must be an int or 'cluster', "
                          f"got {workers!r}")
-    if not jobs:
-        return []
     dev = None if device is None else str(device)
     retries = MAX_RETRIES if retries is None else int(retries)
     outcomes: list[Optional[CellOutcome]] = [None] * len(jobs)

@@ -1,0 +1,18 @@
+"""Serving layer: the multi-tenant DSE service
+(``repro_torch.serve.dse_service``) and its typed protocol
+(``repro_torch.serve.protocol``), re-exported here."""
+from repro_torch.serve.dse_service import DSEService, StudyHandle
+from repro_torch.serve.protocol import (EVENT_KINDS, TERMINAL_EVENTS, Event,
+                                        FrontierUpdate, Progress,
+                                        StudyAccepted, StudyCompleted,
+                                        StudyEvicted, StudyFailed,
+                                        StudyRejected, StudyStarted,
+                                        Submission, from_wire, is_terminal,
+                                        to_wire)
+
+__all__ = [
+    "DSEService", "EVENT_KINDS", "Event", "FrontierUpdate", "Progress",
+    "StudyAccepted", "StudyCompleted", "StudyEvicted", "StudyFailed",
+    "StudyHandle", "StudyRejected", "StudyStarted", "Submission",
+    "TERMINAL_EVENTS", "from_wire", "is_terminal", "to_wire",
+]

@@ -5,8 +5,8 @@ study's farming front end, on the CPU.
 spawns one pool of two processes on ``device="cpu"`` whose artifacts equal
 solo training bit for bit; a job that raises ships as an outcome, never as
 an exception; ``coexplore(stack=True)`` gives the serial frontier with the
-cells counted as farmed misses; ``workers="cluster"`` (the multi-host
-fleet) is refused.  The workloads are the JAX package's own farm tests'
+cells counted as farmed misses; ``workers="cluster"`` with no fleet worker
+enrolled trains the cell through the submitter's reclaim, a farmed miss.  The workloads are the JAX package's own farm tests'
 tiny ones (``tests/test_cellstack.py``).
 """
 import dataclasses
@@ -150,10 +150,21 @@ class TestResolveCells:
                                           retries=1, device="cpu")
         assert outcomes[0].error == "RuntimeError: card on fire"
 
-    def test_cluster_is_refused_naming_the_fleet(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="fleet"):
-            cellfarm.resolve_cells([_job(_mlp())], str(tmp_path),
-                                   workers="cluster", device="cpu")
+    def test_cluster_is_refused_naming_the_fleet(self, tmp_path,
+                                                 monkeypatch):
+        """``workers="cluster"`` goes to the fleet: with no worker
+        enrolled, the submitter reclaims the cell after the no-progress
+        window and trains it in process on ``device``, a trained outcome.
+        Any other string is refused, naming ``'cluster'``."""
+        monkeypatch.setenv("REPRO_FLEET_TIMEOUT", "0.2")
+        monkeypatch.setenv("REPRO_FLEET_POLL", "0.02")
+        job = _job(_mlp())
+        [out] = cellfarm.resolve_cells([job], str(tmp_path),
+                                       workers="cluster", device="cpu")
+        assert out.trained and out.error is None
+        assert out.key == _keys([job])[0]
+        assert _cache(tmp_path).contains(job.workload, job.assignment,
+                                         seed=job.seed)
         with pytest.raises(ValueError, match="'cluster'"):
             cellfarm.resolve_cells([_job(_mlp())], str(tmp_path),
                                    workers="many", device="cpu")
@@ -190,7 +201,13 @@ class TestStudyFarm:
         with pytest.raises(ValueError, match="hardware-only"):
             dse.explore(space, counts=[np.full(2, 2.0)], stack=True)
 
-    def test_cluster_is_refused_by_explore(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="fleet"):
-            dse.coexplore(_mlp(), num_steps=(2,), cache=_cache(tmp_path),
-                          workers="cluster")
+    def test_cluster_is_refused_by_explore(self, tmp_path, monkeypatch):
+        """``coexplore(workers="cluster")`` with no fleet worker completes
+        through the reclaim; the cell counts as a farmed miss and the
+        study's own cache sees a hit."""
+        monkeypatch.setenv("REPRO_FLEET_TIMEOUT", "0.2")
+        monkeypatch.setenv("REPRO_FLEET_POLL", "0.02")
+        one = dse.coexplore(_mlp(), num_steps=(2,), max_lhr=2,
+                            cache=_cache(tmp_path), workers="cluster")
+        assert one.summary["cache"] == {"hits": 1, "misses": 0,
+                                        "farmed_misses": 1}

@@ -328,26 +328,18 @@ class TestModelCells:
 
     @pytest.mark.parametrize("farm", [dict(workers=2), dict(stack=True),
                                       dict(workers="cluster")])
-    def test_the_cell_farm_is_refused(self, wls, tmp_path, farm):
-        """Of the JAX package's cell farm, only the multi-host fleet
-        (``workers="cluster"``) is still refused, naming the fleet slice;
-        ``workers=2`` and ``stack=True`` train the cell through the farm
-        (one job: in process, no spawn), so the study's own cache sees a
-        hit and the cell counts as a farmed miss."""
+    def test_the_cell_farm_is_refused(self, wls, tmp_path, farm,
+                                      monkeypatch):
+        """No part of the JAX package's cell farm is refused: ``workers=2``
+        and ``stack=True`` train the cell through the farm (one job: in
+        process, no spawn), and ``workers="cluster"`` through the fleet,
+        where with no worker enrolled the submitter reclaims it after the
+        no-progress window.  Either way the study's own cache sees a hit
+        and the cell counts as a farmed miss."""
+        monkeypatch.setenv("REPRO_FLEET_TIMEOUT", "0.2")
+        monkeypatch.setenv("REPRO_FLEET_POLL", "0.02")
         wl, _ = wls["torch"]
         cache, _ = _caches(tmp_path)
-        if farm.get("workers") == "cluster":
-            with pytest.raises(NotImplementedError, match="fleet"):
-                dse.explore(_joint_space(dse, arch, wl), workload=wl,
-                            cache=cache, strategy=_evo(dse), **farm)
-            with pytest.raises(NotImplementedError, match="fleet"):
-                dse.coexplore(wl, num_steps=(2,), cache=cache, **farm)
-            assert cache.misses == 0
-            one = dse.coexplore(wl, num_steps=(2,), max_lhr=2, cache=cache,
-                                workers=1)
-            assert one.summary["cache"] == {"hits": 0, "misses": 1,
-                                            "farmed_misses": 0}
-            return
         one = dse.coexplore(wl, num_steps=(2,), max_lhr=2, cache=cache,
                             **farm)
         assert one.summary["cache"] == {"hits": 1, "misses": 0,
