@@ -100,6 +100,27 @@ script then exits non-zero and never prints its result line):
    is longer than the kernel.  conv2's dS row times the layer's whole input
    gradient (``ops.spike_conv_bwd_ds``) against cuDNN's
    ``torch.nn.grad.conv2d_input``.
+8. The LM serving path (it runs between phases 6d and 7), with the seven
+   kernels' counters set to 0 before it and read after: all must read 0.
+   tinyllama-1.1b at full width in bf16 (22 layers, d_model 2048, 32
+   heads on 4 kv heads, d_ff 5632, vocab 32000), weights from the port's
+   ``init_params`` on a card generator seeded 0, answers the 4 requests
+   ``launch/serve.py`` draws (prompts of 4-11 tokens) through
+   ``ServeLoop(batch_size=4, max_len=128)``, 16 new tokens each, twice
+   with equal tokens: every request gets its tokens, each in [0,
+   vocab_padded), every logit finite; the prefill's ms, the median decode
+   step, tokens a second, peak memory, the decode step's least time and
+   the device's busy share of one step.  Its prefill of 31 tokens and one
+   decode step are held against ``forward`` on 4 prompts of 32 tokens at
+   positions 30 and 31, within ``LM_BF16_TOL``, and its bf16 forward
+   against a forward of the same weights widened to fp32 on the card,
+   within ``LM_BF16_FP32_TOL``; phase 1 turns TF32 and cuBLAS's
+   reduced-precision bf16 sums off.  llama3.2-3b, granite-3-2b
+   (tied embeddings) and chatglm3-6b (2-D rope) each answer the same
+   requests with 8 new tokens and the same checks.  A reduced fp32 GQA
+   config (2 layers, d_model 128, 4 heads on 1 kv head) runs on the card
+   and on the CPU from the same converted weights: logits within
+   ``LM_FP32_TOL``, equal ``ServeLoop`` tokens.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -213,9 +234,37 @@ CELL_STEPS = 8
 FLEET_TENANTS = {"alpha": (8, 12), "beta": (8, 16)}
 FLEET_IDLE_S = 20.0
 SUPERVISED = {"steps": 75, "every": 25, "fail_at": 40}
+# Phase 8, the LM serving path: the dense configs served at full width
+# in bf16 with random weights from SEED, and the new tokens each request
+# asks for; the ServeLoop's batch and cache length; the prompts and tokens
+# of the prefill/decode-against-forward check; the reduced fp32 GQA config
+# run on the card and on the CPU.
+LM_ARCHS = {"tinyllama_1_1b": 16, "llama3_2_3b": 8, "granite_3_2b": 8,
+            "chatglm3_6b": 8}
+LM_BATCH, LM_MAX_LEN, LM_REQUESTS = 4, 128, 4
+LM_CHECK = (4, 32)
+LM_REDUCED = dict(name="tinyllama-r", family="transformer", num_layers=2,
+                  d_model=128, n_heads=4, n_kv=1, d_ff=192, vocab=512,
+                  head_dim=32, dtype="float32")
+# Prefill (31 tokens) and one decode step against the full forward, in
+# bf16 at full width: max |logit difference| / max |logit|.  bf16 rounds
+# each product's output, and a 31-row and a 32-row product need not round
+# alike.  Measured 0.0133 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# §6); the tolerance is three times that.
+LM_BF16_TOL = 0.04
+# The same bf16 forward against a forward of its weights widened to fp32
+# on the card (TF32 off, bf16 products summed in fp32): what bf16's
+# rounding of every activation adds up to over 22 layers.  Measured 0.0162
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6); the tolerance is three
+# times that, rounded up.
+LM_BF16_FP32_TOL = 0.05
+# The reduced fp32 config, card against CPU (TF32 off): the same ops,
+# summed in other orders.
+LM_FP32_TOL = dict(rtol=1e-5, atol=5e-5)
 # Published peaks of one H100 SXM at its 700 W limit (dense, no sparsity).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 LINES = {"spike_gemm": "src/repro/kernels/spike_gemm.py:49",
          "spike_gemm_lif": "src/repro/kernels/spike_gemm_fused.py:59",
          "spike_conv": "src/repro/kernels/spike_conv.py:91",
@@ -279,6 +328,29 @@ def median_ms(torch, fn, reps=25, warmup=3) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+
+def step_profile(torch, step) -> dict:
+    """One call of ``step`` (warmed up by the caller) between two
+    synchronises, then one more under the profiler: the call's wall time,
+    the device's busy time (its CUDA kernels' device time summed), the
+    busy share of the wall and the kernels launched."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kern) / 1e3
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "busy_share": busy / (wall * 1e3) if kern else None,
+            "kernels": len(kern)}
 
 
 def device_ms(torch, fn, calls=20, tries=3, flush=None):
@@ -609,6 +681,230 @@ def fleet_phase(torch, dev, miss, solo_seed1) -> dict:
     return out
 
 
+def lm_phase(torch, dev) -> dict:
+    """Phase 8: the LM serving path (see the module docstring).  The seven
+    kernels' counters are set to 0 before it and read after; the path
+    launches none of them."""
+    from repro_torch import convert
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import registry
+    from repro_torch.serve import engine
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def finite(t):
+        return bool(torch.isfinite(t.float()).all())
+
+    def timed(fn, sink, logits_of):
+        """``fn`` with each call's wall time (ending in a synchronise)
+        appended to ``sink``, and its logits checked finite."""
+        def call(*args):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync()
+            sink.append(time.perf_counter() - t0)
+            if not finite(logits_of(out)):
+                raise AssertionError("a non-finite logit")
+            return out
+        return call
+
+    def serve(cfg, params, new_tokens):
+        """One ServeLoop run of LM_REQUESTS requests: their tokens, the
+        prefill's and each decode step's seconds, and the run's wall."""
+        loop = engine.ServeLoop(cfg, params, batch_size=LM_BATCH,
+                                max_len=LM_MAX_LEN)
+        pre, dec = [], []
+        loop._prefill = timed(loop._prefill, pre, lambda o: o[0])
+        loop._decode = timed(loop._decode, dec, lambda o: o["logits"])
+        reqs = make_requests(cfg, LM_REQUESTS, new_tokens)
+        sync()
+        t0 = time.perf_counter()
+        loop.run(reqs)
+        sync()
+        wall = time.perf_counter() - t0
+        got = [r.generated for r in reqs]
+        if [len(g) for g in got] != [new_tokens] * LM_REQUESTS or not all(
+                0 <= t < cfg.vocab_padded for g in got for t in g):
+            raise AssertionError(f"{cfg.name}: the requests got {got}")
+        return got, pre, dec, wall
+
+    def decode_bound(cfg, params) -> tuple[float, str]:
+        """One decode step at LM_BATCH: every weight read once (the
+        embedding only in its LM_BATCH gathered rows unless it is also the
+        unembedding), the cache read, its new slots written, and
+        2 multiply-adds a weight a sequence, at bf16 peaks."""
+        leaves = [t for sub in (params["layers"], params["final_norm"],
+                                params.get("lm_head", {}))
+                  for t in store.leaves(sub)]
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        emb = params["embed"]["embedding"]
+        nbytes += (emb.numel() if cfg.tie_embeddings
+                   else LM_BATCH * emb.shape[1]) * emb.element_size()
+        kv = (2 * cfg.num_layers * LM_BATCH * LM_MAX_LEN * cfg.n_kv
+              * cfg.resolved_head_dim * emb.element_size())
+        macs = sum(t.numel() for t in leaves) + (
+            emb.numel() if cfg.tie_embeddings else 0)
+        t_bytes = (nbytes + kv) / PEAK_BYTES_PER_S
+        t_ops = 2 * macs * LM_BATCH / PEAK_BF16_FLOPS
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    def busy_share(cfg, params) -> dict:
+        """One decode step after a prefill and a warm-up step: its wall
+        time and, from the profiler, the device's busy time."""
+        step = engine.build_decode_step(cfg)
+        toks = torch.randint(1, cfg.vocab, (LM_BATCH, 8), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(SEED))
+        with torch.inference_mode():
+            _, cache = engine.build_prefill_step(cfg, LM_MAX_LEN)(
+                params, {"tokens": toks})
+            state = {"token": toks[:, -1:].to(torch.int32), "cache": cache}
+
+            def one():
+                state["cache"] = step(params, state)["cache"]
+
+            one()                                           # warm-up
+            return step_profile(torch, one)
+
+    def widened(tree):
+        return ({k: widened(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.float())
+
+    def against_forward(cfg, params) -> tuple[float, float]:
+        """Prefill of LM_CHECK prompts' first S-1 tokens, then one decode
+        step, against the full forward at positions S-2 and S-1; and that
+        bf16 forward against one of the same weights widened to fp32 (TF32
+        off) at every position.  Each as max |difference| / max |logit|
+        of the forward it is held against."""
+        n, S = LM_CHECK
+        toks = torch.randint(1, cfg.vocab, (n, S), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(SEED + 1))
+        with torch.inference_mode():
+            ref, _ = registry.forward(params, cfg, {"tokens": toks})
+            pre, cache = registry.prefill(params, cfg,
+                                          {"tokens": toks[:, :S - 1]},
+                                          max_len=S)
+            dec, _ = registry.decode_step(params, cfg, toks[:, S - 1:],
+                                          cache)
+            scale = float(ref[:, S - 2:].float().abs().max())
+            err = max(float((pre[:, 0] - ref[:, S - 2]).float().abs().max()),
+                      float((dec[:, 0] - ref[:, S - 1]).float().abs().max()))
+            if not (finite(ref) and finite(pre) and finite(dec)):
+                raise AssertionError(f"{cfg.name}: a non-finite logit")
+            wide, _ = registry.forward(
+                widened(params), dataclasses.replace(cfg, dtype="float32"),
+                {"tokens": toks})
+            err32 = float((ref.float() - wide).abs().max()) / float(
+                wide.abs().max())
+            del wide
+        return err / scale, err32
+
+    out = {"configs": {}}
+    ops.reset_launch_counts()
+    for arch_id, new_tokens in LM_ARCHS.items():
+        cfg = registry.load_arch(arch_id)
+        base = 0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        sync()
+        t0 = time.perf_counter()
+        params = registry.init_params(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+        sync()
+        init_s = time.perf_counter() - t0
+        first, *_ = serve(cfg, params, new_tokens)          # warm-up
+        got, pre, dec, wall = serve(cfg, params, new_tokens)
+        if got != first:
+            raise AssertionError(f"{cfg.name}: two runs gave other tokens")
+        row = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+               "heads": cfg.n_heads, "kv_heads": cfg.n_kv,
+               "params": sum(t.numel() for t in store.leaves(params)),
+               "init_s": init_s, "prefill_ms": pre[0] * 1e3,
+               "decode_ms_median": statistics.median(dec) * 1e3,
+               "decode_steps": len(dec), "run_s": wall,
+               "tokens_per_s": LM_REQUESTS * new_tokens / wall,
+               "tokens": got}
+        if dev.type == "cuda":
+            # serving's, above what the earlier phases still hold (the
+            # checks below widen tinyllama's weights to fp32)
+            row["peak_gib"] = (torch.cuda.max_memory_allocated()
+                               - base) / 2 ** 30
+        row["decode_bound_ms"], row["decode_bound_by"] = decode_bound(
+            cfg, params)
+        if arch_id == "tinyllama_1_1b":
+            (row["rel_err_vs_forward"],
+             row["rel_err_vs_fp32"]) = against_forward(cfg, params)
+            if row["rel_err_vs_forward"] > LM_BF16_TOL:
+                raise AssertionError(
+                    f"{cfg.name}: prefill/decode against forward "
+                    f"{row['rel_err_vs_forward']:.4g} > {LM_BF16_TOL}")
+            if row["rel_err_vs_fp32"] > LM_BF16_FP32_TOL:
+                raise AssertionError(
+                    f"{cfg.name}: the bf16 forward against the fp32 one "
+                    f"{row['rel_err_vs_fp32']:.4g} > {LM_BF16_FP32_TOL}")
+            row["decode_step"] = busy_share(cfg, params)
+        del params
+        out["configs"][arch_id] = row
+        log(f"  {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{row['params'] / 1e9:.3f} B params, bf16): prefill "
+            f"{row['prefill_ms']:.2f} ms, decode {row['decode_ms_median']:.2f}"
+            f" ms a step (median of {len(dec)}; bound "
+            f"{row['decode_bound_ms']:.3f} ms, {row['decode_bound_by']}), "
+            f"{row['tokens_per_s']:.1f} tokens/s, peak "
+            f"{row.get('peak_gib', float('nan')):.2f} GiB")
+        if "rel_err_vs_forward" in row:
+            st = row["decode_step"]
+            log(f"    prefill + decode against forward: "
+                f"{row['rel_err_vs_forward']:.4g} of max |logit| "
+                f"(tolerance {LM_BF16_TOL}); bf16 forward against fp32 "
+                f"{row['rel_err_vs_fp32']:.4g} (tolerance "
+                f"{LM_BF16_FP32_TOL}); one decode step "
+                f"{st['wall_ms']:.2f} ms, device busy "
+                f"{st['device_busy_ms']:.3f} ms, {st['kernels']} kernels")
+
+    # the reduced fp32 GQA config: the same converted weights on the card
+    # and on the CPU
+    cfg = ArchConfig(**LM_REDUCED)
+    tree = convert.lm_params_to_numpy(registry.init_params(
+        torch.Generator().manual_seed(SEED), cfg, device="cpu"))
+    on = {d: convert.lm_params_from_numpy(tree, cfg, device=d)
+          for d in (dev, torch.device("cpu"))}
+    toks = np.random.default_rng(SEED).integers(1, cfg.vocab, (LM_BATCH, 24))
+    logits, tokens = {}, {}
+    for d, params in on.items():
+        with torch.inference_mode():
+            logits[d.type], _ = registry.forward(
+                params, cfg, {"tokens": torch.from_numpy(toks).to(d)})
+        tokens[d.type] = serve(cfg, params, 16)[0]
+    card, host = logits[dev.type].cpu().numpy(), logits["cpu"].numpy()
+    np.testing.assert_allclose(card, host, **LM_FP32_TOL)
+    if tokens[dev.type] != tokens["cpu"]:
+        raise AssertionError("the reduced config's tokens differ between "
+                             "the card and the CPU")
+    out["reduced_fp32"] = {"max_abs_logit_diff": float(
+        np.abs(card - host).max()), "tokens_equal": True}
+    log(f"  {cfg.name} fp32: card against CPU, max |logit difference| "
+        f"{out['reduced_fp32']['max_abs_logit_diff']:.3g}, "
+        f"ServeLoop tokens equal")
+
+    out["launches"] = ops.launch_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"the LM serving path launched SNN kernels: "
+                             f"{out['launches']}")
+    log(f"  the seven kernels' launches on the LM path: {out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -660,9 +956,14 @@ def main() -> int:
     with Phase("set-up"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # phase 8's bf16 products sum in fp32, as the reference's do
+        matmul = torch.backends.cuda.matmul
+        matmul.allow_bf16_reduced_precision_reduction = False
         log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-            f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-            f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+            f"matmul.allow_tf32={matmul.allow_tf32} "
+            f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+            f"matmul.allow_bf16_reduced_precision_reduction="
+            f"{matmul.allow_bf16_reduced_precision_reduction}")
         smi = smi_line()
         log(f"card: {smi}")
         t0 = time.perf_counter()
@@ -1855,7 +2156,6 @@ def main() -> int:
 
         # one training step of the slab against one solo step: device busy
         # share and kernels a step, from the profiler
-        from torch.profiler import ProfilerActivity, profile
         cfg_c = dvs.build(CELL_STEPS, 1.0)
         tx = optim.adam(dvs.lr)
         data_c = dvs.make_data(CELL_STEPS)
@@ -1872,27 +2172,13 @@ def main() -> int:
                      yb.expand(SLAB_CELLS, -1).contiguous())}
         for name, (fn, p, st, g, x, y) in steps.items():
             fn(p, st, g, x, y)                          # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(p, st, g, x, y)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn(p, st, g, x, y)
-                torch.cuda.synchronize()
-            kern = [e for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy = sum(e.device_time_total for e in kern) / 1e3
-            slab[f"{name}_step"] = {
-                "wall_ms": wall * 1e3, "device_busy_ms": busy,
-                "busy_share": busy / (wall * 1e3) if kern else None,
-                "kernels": len(kern)}
-            log(f"  one {name} training step: {wall * 1e3:.1f} ms "
-                f"unprofiled, device busy {busy:.1f} ms "
-                + (f"({busy / (wall * 1e3):.0%})" if kern else
+            st_ = slab[f"{name}_step"] = step_profile(
+                torch, lambda: fn(p, st, g, x, y))
+            log(f"  one {name} training step: {st_['wall_ms']:.1f} ms "
+                f"unprofiled, device busy {st_['device_busy_ms']:.1f} ms "
+                + (f"({st_['busy_share']:.0%})" if st_["kernels"] else
                    "(the profiler recorded no device time: not measured)")
-                + f", {len(kern)} device kernels")
+                + f", {st_['kernels']} device kernels")
         del steps, inits, slab_p
         report["slab"] = slab
 
@@ -1901,6 +2187,11 @@ def main() -> int:
     with Phase("the DSE service over the fleet, a worker killed mid-cell, "
                "the training supervisor"):
         report["fleet"] = fleet_phase(torch, dev, miss, solos[1])
+
+    # ---- 8. the LM serving path (run before the timing, so that its
+    # numbers come from a card no timing loop has just heated) -----------
+    with Phase("the LM serving path: four dense configs at full width"):
+        report["lm"] = lm_phase(torch, dev)
 
     # ---- 7. timing at the main path's shapes and traffic -----------------
     layers = dict(zip(names, zip(specs, [p for p in params if p])))
@@ -2234,6 +2525,7 @@ def main() -> int:
             "training_launches_by_backend": {
                 b: c[name] for b, c in train_launches.items()},
             "api_path_launches": api_launches[name],
+            "lm_serving_launches": report["lm"]["launches"][name],
             "max_abs_err": errs[name],
             "normal_weights_rel_err": normal.get(name),
             "ms": sum(r["ms"] for r in rows),

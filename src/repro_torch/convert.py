@@ -7,14 +7,19 @@ spiking layer (HWIO conv weights, (K, N) dense weights, (N,) biases) and
 ``(AdamState(count, mu, nu), ScaleState(count))`` with ``mu`` and ``nu``
 shaped as the parameters; as NumPy it is ``{"count", "mu", "nu"}``.  The
 exchange format is NumPy, so neither package imports the other.
+
+An LM's parameters (``lm_params_from_numpy``/``lm_params_to_numpy``) are
+the reference's tree: nested dicts with the stacked leading layer axis,
+leaves in ``cfg.dtype``.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.optim import AdamState, ScaleState
 
@@ -49,3 +54,33 @@ def adam_state_to_numpy(state: tuple[AdamState, ScaleState]) -> dict:
     adam = state[0]
     return {"count": np.asarray(int(adam.count), np.int32),
             "mu": params_to_numpy(adam.mu), "nu": params_to_numpy(adam.nu)}
+
+
+def lm_params_from_numpy(tree: Any, cfg: ArchConfig,
+                         device: DeviceLike = None) -> Any:
+    """A nested dict of NumPy leaves -> the same tree of ``cfg.dtype``
+    tensors on ``device``.  JAX's bf16 leaves come out of ``np.asarray`` as
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects, so every
+    leaf goes through float32 first: widening a bf16 value and narrowing it
+    back are both exact."""
+    dev = resolve(device)
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def leaf(v):
+        t = torch.from_numpy(np.array(v, dtype=np.float32))
+        return t.to(device=dev, dtype=dtype)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return leaf(node)
+
+    return walk(tree)
+
+
+def lm_params_to_numpy(tree: Any) -> Any:
+    """An LM param tree -> nested dicts of float32 NumPy arrays (a bf16
+    leaf comes back widened, value for value)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", torch.float32).numpy()

@@ -1,0 +1,395 @@
+"""Shared model layers: norms, rotary variants, GQA attention (with KV cache
+and sliding windows), and gated MLPs.  Plain functions on dicts of tensors,
+the JAX package's ``repro.models.layers`` op for op.
+
+Every product, softmax and norm here is an explicit PyTorch op, as the
+reference leaves them to XLA outside any Pallas kernel.  Attention keeps the
+reference's numerics: scores in fp32 (operands widened, so a bf16 product is
+exact before the fp32 sum), an additive ``-1e30`` mask, probabilities cast
+to the activation dtype before the second product, and the same query
+chunking.  No fused library attention is used.
+
+The reference's ``maybe_shard`` (a sharding constraint against an ambient
+mesh, a no-op outside one) has no counterpart: this package runs a model on
+one card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+PyTree = Any
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype=torch.float32, *,
+                 device: torch.device) -> PyTree:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: PyTree, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """fp32 statistics, cast back, then the scale in the activation dtype."""
+    dt = x.dtype
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * p["scale"].to(dt)
+
+
+def layernorm_init(d: int, dtype=torch.float32, *,
+                   device: torch.device) -> PyTree:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: PyTree, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return out.to(dt) * p["scale"].to(dt) + p["bias"].to(dt)
+
+
+def norm_init(kind: str, d: int, dtype=torch.float32, *,
+              device: torch.device) -> PyTree:
+    return (rmsnorm_init(d, dtype, device=device) if kind == "rms"
+            else layernorm_init(d, dtype, device=device))
+
+
+def norm_apply(kind: str, p: PyTree, x: torch.Tensor) -> torch.Tensor:
+    return rmsnorm(p, x) if kind == "rms" else layernorm(p, x)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (1D, 2D-ChatGLM, 3D M-RoPE)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     rotary_dim: Optional[int] = None, *,
+                     device: torch.device) -> torch.Tensor:
+    rd = rotary_dim or head_dim
+    exps = torch.arange(0, rd, 2, dtype=torch.float32, device=device) / rd
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs (even, odd) of the last dim by per-pair
+    angles.  x: (..., rd) with rd even; angles: broadcastable (..., rd//2).
+    """
+    x1 = x[..., 0::2]
+    x2 = x[..., 1::2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0,
+               rotary_frac: float = 1.0) -> torch.Tensor:
+    """Standard 1D RoPE.  x: (B, S, H, D); positions: (B, S) int.
+
+    ``rotary_frac < 1`` rotates only the leading fraction of head dims and
+    passes the rest through.
+    """
+    D = x.shape[-1]
+    rd = int(D * rotary_frac)
+    rd -= rd % 2
+    freqs = rope_frequencies(D, theta, rd, device=x.device)   # (rd/2,)
+    ang = positions[..., None, None].float() * freqs          # (B,S,1,rd/2)
+    rotated = _rotate(x[..., :rd].float(), ang).to(x.dtype)
+    return torch.cat([rotated, x[..., rd:]], dim=-1) if rd < D else rotated
+
+
+def apply_rope_2d(x: torch.Tensor, positions: torch.Tensor,
+                  theta: float = 10000.0) -> torch.Tensor:
+    """ChatGLM-style 2D RoPE: the head dim is split in halves, each rotated
+    by its own positional channel.  positions: (2, B, S)."""
+    half = x.shape[-1] // 2
+    a = apply_rope(x[..., :half], positions[0], theta)
+    b = apply_rope(x[..., half:], positions[1], theta)
+    return torch.cat([a, b], dim=-1)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple[int, ...],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: rotary pairs are partitioned into (temporal, h, w)
+    sections, each driven by its own position id.  positions: (3, B, S);
+    ``sections`` are pair counts summing to D//2."""
+    D = x.shape[-1]
+    assert sum(sections) == D // 2, (sections, D)
+    freqs = rope_frequencies(D, theta, device=x.device)      # (D/2,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))
+    pos = positions[sec_id]                                  # (D/2, B, S)
+    ang = pos.permute(1, 2, 0).float() * freqs               # (B, S, D/2)
+    return _rotate(x.float(), ang[:, :, None, :]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear / embedding
+# ---------------------------------------------------------------------------
+
+def linear_init(generator: torch.Generator, d_in: int, d_out: int,
+                dtype=torch.float32, bias: bool = False, *,
+                device: torch.device) -> PyTree:
+    w = torch.randn((d_in, d_out), generator=generator, dtype=dtype,
+                    device=device) / math.sqrt(d_in)
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def linear(p: PyTree, x: torch.Tensor) -> torch.Tensor:
+    # the cast is a no-op when the weight is already in x's dtype, so a
+    # bf16 model keeps no fp32 copy of its weights
+    out = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        out = out + p["b"].to(x.dtype)
+    return out
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int,
+               dtype=torch.float32, *, device: torch.device) -> PyTree:
+    return {"embedding": torch.randn((vocab, d), generator=generator,
+                                     dtype=dtype, device=device) * 0.02}
+
+
+def embed(p: PyTree, tokens: torch.Tensor) -> torch.Tensor:
+    return p["embedding"][tokens]
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, causal / bidirectional / sliding window, KV cache)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    rope: str = "1d"                 # "1d" | "2d" | "mrope" | "none"
+    rope_theta: float = 10000.0
+    rope_frac: float = 1.0
+    mrope_sections: tuple[int, ...] = ()
+    window: int = 0                  # sliding window (0 = full)
+    causal: bool = True
+    qkv_bias: bool = False
+
+
+def attn_init(generator: torch.Generator, cfg: AttnConfig,
+              dtype=torch.float32, *, device: torch.device) -> PyTree:
+    def lin(d_in, d_out, bias):
+        return linear_init(generator, d_in, d_out, dtype, bias,
+                           device=device)
+
+    return {
+        "wq": lin(cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.qkv_bias),
+        "wk": lin(cfg.d_model, cfg.n_kv * cfg.head_dim, cfg.qkv_bias),
+        "wv": lin(cfg.d_model, cfg.n_kv * cfg.head_dim, cfg.qkv_bias),
+        "wo": lin(cfg.n_heads * cfg.head_dim, cfg.d_model, False),
+    }
+
+
+def _apply_positional(cfg: AttnConfig, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rope == "1d":
+        return apply_rope(x, positions, cfg.rope_theta, cfg.rope_frac)
+    if cfg.rope == "2d":
+        return apply_rope_2d(x, positions, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
+    return x
+
+
+def _where_bias(ok: torch.Tensor) -> torch.Tensor:
+    """0 where ``ok``, ``-1e30`` elsewhere, in fp32."""
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, torch.full_like(zero, -1e30))
+
+
+def _mask_bias(cfg: AttnConfig, q_pos: torch.Tensor, kv_pos: torch.Tensor,
+               kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, Sq, Skv) additive mask from causality + window + cache validity.
+
+    q_pos: (B, Sq); kv_pos: (B, Skv) absolute positions.
+    """
+    q = q_pos[:, :, None]
+    k = kv_pos[:, None, :]
+    ok = torch.ones((q.shape[0], q.shape[1], k.shape[2]), dtype=torch.bool,
+                    device=q.device)
+    if cfg.causal:
+        ok &= k <= q
+    if cfg.window:
+        ok &= k > q - cfg.window
+    if kv_valid is not None:
+        ok &= kv_valid[:, None, :]
+    return _where_bias(ok)
+
+
+ATTN_CHUNK = 1024     # query-chunk length for memory-efficient attention
+
+
+def _attend_block(cfg: AttnConfig, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """One (q-chunk x kv) attention block.  q: (B,Sq,H,D); k/v: (B,Skv,H,D)
+    (kv already expanded to full heads); bias: (B,Sq,Skv) additive."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = scores * (1.0 / math.sqrt(cfg.head_dim))
+    probs = torch.softmax(scores + bias[:, None], dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _attend_decode(cfg: AttnConfig, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Short-query (decode) attention: grouped GQA einsum against the cache
+    in its native layout, with no kv repeat (query head ``h`` reads kv head
+    ``h // groups``)."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    scores = scores * (1.0 / math.sqrt(D))
+    probs = torch.softmax(scores + bias[:, None, None], dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(B, Sq, H * D)
+
+
+def _attend(cfg: AttnConfig, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, q_abs: Optional[torch.Tensor],
+            kv_abs: Optional[torch.Tensor], kv_valid: Optional[torch.Tensor],
+            masked: bool, chunk: int = ATTN_CHUNK) -> torch.Tensor:
+    """Chunked GQA attention core: queries processed in chunks so the score
+    tensor never exceeds (B, H, chunk, Skv); causal chunks also truncate the
+    KV span they can see."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    if Sq <= 8 and Skv > Sq:      # decode against a cache
+        if masked:
+            bias = _mask_bias(cfg, q_abs, kv_abs, kv_valid)
+        elif kv_valid is not None:
+            bias = _where_bias(kv_valid[:, None, :])
+        else:
+            bias = torch.zeros((B, Sq, Skv), dtype=torch.float32,
+                               device=q.device)
+        return _attend_decode(cfg, q, k, v, bias)
+    groups = cfg.n_heads // cfg.n_kv
+    if groups > 1:
+        k = k.repeat_interleave(groups, dim=2)
+        v = v.repeat_interleave(groups, dim=2)
+
+    def bias_for(q_abs_c, lo, hi, qlen):
+        if not masked:
+            if kv_valid is not None:
+                return _where_bias(kv_valid[:, None, lo:hi])
+            return torch.zeros((B, qlen, hi - lo), dtype=torch.float32,
+                               device=q.device)
+        kvv = kv_valid[:, lo:hi] if kv_valid is not None else None
+        return _mask_bias(cfg, q_abs_c, kv_abs[:, lo:hi], kvv)
+
+    if Sq <= chunk:
+        out = _attend_block(cfg, q, k, v, bias_for(q_abs, 0, Skv, Sq))
+    else:
+        assert Sq % chunk == 0, (Sq, chunk)
+        outs = []
+        causal_trunc = (masked and cfg.causal and kv_abs is not None
+                        and Sq == Skv)
+        for i in range(Sq // chunk):
+            qc = q[:, i * chunk:(i + 1) * chunk]
+            qa = (q_abs[:, i * chunk:(i + 1) * chunk]
+                  if q_abs is not None else None)
+            lo = 0
+            hi = (i + 1) * chunk if causal_trunc else Skv
+            if causal_trunc and cfg.window:
+                lo = max(0, (i + 1) * chunk - cfg.window - chunk)
+            outs.append(_attend_block(cfg, qc, k[:, lo:hi], v[:, lo:hi],
+                                      bias_for(qa, lo, hi, chunk)))
+        out = torch.cat(outs, dim=1)
+    return out.reshape(B, Sq, H * D)
+
+
+def attention(p: PyTree, cfg: AttnConfig, x: torch.Tensor,
+              positions: torch.Tensor,
+              kv_override: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+              kv_positions: Optional[torch.Tensor] = None,
+              kv_valid: Optional[torch.Tensor] = None,
+              cross_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """General GQA attention.
+
+    x: (B, Sq, d); positions: (B, Sq) (or (2/3, B, Sq) for 2d/mrope).
+    kv_override: precomputed (k, v) each (B, Skv, n_kv, hd): decode cache or
+    cross-attention memory.  kv_positions (B, Skv) and kv_valid mask apply.
+    cross_kv: (B, Skv, d) source sequence for cross-attention (k/v projected
+    from it, no positional rotation).
+    """
+    B, Sq, _ = x.shape
+    q = linear(p["wq"], x).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+    q = _apply_positional(cfg, q, positions)
+
+    if kv_override is not None:
+        k, v = kv_override
+    elif cross_kv is not None:
+        Skv = cross_kv.shape[1]
+        k = linear(p["wk"], cross_kv).reshape(B, Skv, cfg.n_kv, cfg.head_dim)
+        v = linear(p["wv"], cross_kv).reshape(B, Skv, cfg.n_kv, cfg.head_dim)
+    else:
+        k = linear(p["wk"], x).reshape(B, Sq, cfg.n_kv, cfg.head_dim)
+        v = linear(p["wv"], x).reshape(B, Sq, cfg.n_kv, cfg.head_dim)
+        k = _apply_positional(cfg, k, positions)
+
+    if cross_kv is not None:
+        out = _attend(cfg, q, k, v, None, None, kv_valid, masked=False)
+    else:
+        q_abs = positions if positions.ndim == 2 else positions[0]
+        kv_abs = kv_positions if kv_positions is not None else (
+            q_abs if kv_override is None else None)
+        assert kv_abs is not None, "kv_positions required with kv_override"
+        out = _attend(cfg, q, k, v, q_abs, kv_abs, kv_valid, masked=True)
+    return linear(p["wo"], out)
+
+
+def project_kv(p: PyTree, cfg: AttnConfig, x: torch.Tensor,
+               positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K/V projection for cache fill.  x: (B, S, d) -> (B, S, n_kv, hd)."""
+    B, S, _ = x.shape
+    k = linear(p["wk"], x).reshape(B, S, cfg.n_kv, cfg.head_dim)
+    v = linear(p["wv"], x).reshape(B, S, cfg.n_kv, cfg.head_dim)
+    k = _apply_positional(cfg, k, positions)
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+             kind: str = "swiglu", dtype=torch.float32, *,
+             device: torch.device) -> PyTree:
+    def lin(d_in, d_out):
+        return linear_init(generator, d_in, d_out, dtype, False,
+                           device=device)
+
+    if kind == "swiglu":
+        return {"w_gate": lin(d_model, d_ff), "w_up": lin(d_model, d_ff),
+                "w_down": lin(d_ff, d_model)}
+    return {"w_up": lin(d_model, d_ff), "w_down": lin(d_ff, d_model)}
+
+
+def mlp(p: PyTree, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    if kind == "swiglu":
+        return linear(p["w_down"],
+                      F.silu(linear(p["w_gate"], x)) * linear(p["w_up"], x))
+    # jax.nn.gelu defaults to the tanh approximation
+    return linear(p["w_down"], F.gelu(linear(p["w_up"], x),
+                                      approximate="tanh"))

@@ -1,0 +1,309 @@
+"""Decoder-only transformer family, dense layers (llama3.2, granite,
+tinyllama, chatglm3, the qwen2-vl backbone).
+
+Layers are *stacked*: every layer-param leaf carries a leading ``L`` dim,
+as in the JAX package, whose ``lax.scan`` over ``params["layers"]`` is a
+Python loop here that indexes the stacked leaves.  Params and caches are
+plain dicts of tensors on one device; functions take the device of their
+inputs, and ``init_params``/``init_cache`` take an explicit ``device``.
+
+A layer with a mixture of experts (``cfg.moe``) is not ported yet
+(ROADMAP §1): every entry point refuses it, never falling back to a
+dense MLP.
+"""
+from __future__ import annotations
+
+from typing import Any, Union
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.models import layers
+
+PyTree = Any
+
+
+def _dtype(cfg: ArchConfig):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _dense_only(cfg: ArchConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts layers are not ported yet "
+            "(ROADMAP §1: moe with distributed/sharding.py)")
+
+
+def attn_config(cfg: ArchConfig) -> layers.AttnConfig:
+    return layers.AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+        head_dim=cfg.resolved_head_dim, rope=cfg.rope,
+        rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections,
+        window=cfg.window, causal=True)
+
+
+def layer_params(tree: PyTree, l: int) -> PyTree:
+    """Layer ``l``'s params: every stacked leaf indexed at ``l`` (views)."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def init_layer(generator: torch.Generator, cfg: ArchConfig, dtype, *,
+               device: torch.device) -> PyTree:
+    return {
+        "attn_norm": layers.norm_init(cfg.norm, cfg.d_model, dtype,
+                                      device=device),
+        "attn": layers.attn_init(generator, attn_config(cfg), dtype,
+                                 device=device),
+        "mlp_norm": layers.norm_init(cfg.norm, cfg.d_model, dtype,
+                                     device=device),
+        "mlp": layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                               cfg.mlp_kind, dtype, device=device),
+    }
+
+
+def _stack_into(dst: PyTree, src: PyTree, l: int) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _stack_into(dst[k], v, l)
+        else:
+            dst[k][l].copy_(v)
+
+
+def _empty_stacked(tree: PyTree, n: int) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _empty_stacked(v, n) for k, v in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def init_params(generator: torch.Generator, cfg: ArchConfig,
+                device: DeviceLike = None) -> PyTree:
+    """Random params in ``cfg.dtype`` on ``device``, drawn from
+    ``generator`` (which lives on that device).  Layers are drawn one after
+    another into the stacked leaves, so init never holds two copies."""
+    _dense_only(cfg)
+    dev = resolve(device)
+    dtype = _dtype(cfg)
+    embed = layers.embed_init(generator, cfg.vocab_padded, cfg.d_model,
+                              dtype, device=dev)
+    stacked = None
+    for l in range(cfg.num_layers):
+        lp = init_layer(generator, cfg, dtype, device=dev)
+        if stacked is None:
+            stacked = _empty_stacked(lp, cfg.num_layers)
+        _stack_into(stacked, lp, l)
+        del lp
+    params = {
+        "embed": embed,
+        "layers": stacked,
+        "final_norm": layers.norm_init(cfg.norm, cfg.d_model, dtype,
+                                      device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.linear_init(generator, cfg.d_model,
+                                               cfg.vocab_padded, dtype,
+                                               device=dev)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Positions
+# ---------------------------------------------------------------------------
+
+def make_positions(cfg: ArchConfig, B: int, S: int,
+                   offset: Union[torch.Tensor, int] = 0, *,
+                   device: torch.device) -> torch.Tensor:
+    """Default position ids per rope flavour (explicit ids may override:
+    qwen2-vl's M-RoPE ids come from the batch)."""
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None, :] + offset
+    pos = pos.expand(B, S)
+    if cfg.rope == "2d":
+        return torch.stack([pos, pos])
+    if cfg.rope == "mrope":
+        return torch.stack([pos, pos, pos])
+    return pos
+
+
+def _abs_positions(positions: torch.Tensor) -> torch.Tensor:
+    return positions if positions.ndim == 2 else positions[0]
+
+
+def _batch_positions(cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    positions = batch.get("positions")
+    if positions is None:
+        B, S = batch["tokens"].shape
+        positions = make_positions(cfg, B, S, device=batch["tokens"].device)
+    return positions
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill and the teacher-forced reference)
+# ---------------------------------------------------------------------------
+
+def _layer_fwd(cfg: ArchConfig, acfg: layers.AttnConfig, lp: PyTree,
+               x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    h = layers.norm_apply(cfg.norm, lp["attn_norm"], x)
+    x = x + layers.attention(lp["attn"], acfg, h, positions)
+    h = layers.norm_apply(cfg.norm, lp["mlp_norm"], x)
+    return x + layers.mlp(lp["mlp"], h, cfg.mlp_kind)
+
+
+def embed_inputs(params: PyTree, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Token embedding + modality-frontend merge (vision stub: precomputed
+    patch embeddings overwrite the leading positions)."""
+    x = layers.embed(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x[:, :pe.shape[1], :pe.shape[2]] = pe
+    return x
+
+
+def forward(params: PyTree, cfg: ArchConfig,
+            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits, aux_loss); a dense model's
+    aux loss is 0."""
+    _dense_only(cfg)
+    x = embed_inputs(params, cfg, batch)
+    positions = _batch_positions(cfg, batch)
+    acfg = attn_config(cfg)
+    for l in range(cfg.num_layers):
+        x = _layer_fwd(cfg, acfg, layer_params(params["layers"], l), x,
+                       positions)
+    x = layers.norm_apply(cfg.norm, params["final_norm"], x)
+    logits = unembed(params, cfg, x)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def unembed(params: PyTree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["embedding"].T.to(x.dtype)
+    return layers.linear(params["lm_head"], x)
+
+
+# ---------------------------------------------------------------------------
+# KV cache serving
+# ---------------------------------------------------------------------------
+
+def cache_capacity(cfg: ArchConfig, max_len: int) -> int:
+    """Rolling-buffer capacity: windowed archs cap the cache at the
+    window."""
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
+def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
+               device: DeviceLike = None) -> PyTree:
+    """An empty cache on ``device``.  ``length`` (tokens seen so far) is a
+    host int, so a decode step needs no read from the card to find its
+    slot."""
+    _dense_only(cfg)
+    dev = resolve(device)
+    C = cache_capacity(cfg, max_len)
+    shape = (cfg.num_layers, batch_size, C, cfg.n_kv, cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+        "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+        # absolute position stored in each slot (-1 = empty)
+        "slot_pos": torch.full((batch_size, C), -1, dtype=torch.int32,
+                               device=dev),
+        "length": 0,
+    }
+
+
+def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
+            max_len: int) -> tuple[torch.Tensor, PyTree]:
+    """Run the full prompt, build the cache, return last-token logits."""
+    _dense_only(cfg)
+    x = embed_inputs(params, cfg, batch)
+    B, S = batch["tokens"].shape
+    positions = _batch_positions(cfg, batch)
+    acfg = attn_config(cfg)
+    C = cache_capacity(cfg, max_len)
+    abs_pos = _abs_positions(positions)
+    dev = x.device
+
+    # The cache keeps the last C tokens only: their absolute positions map
+    # to C distinct rolling slots (consecutive ints mod C), so the scatter
+    # has no duplicate indices.  When C >= S nothing wraps and slot i holds
+    # token i (a pad); decode then writes at slot length % C == S.
+    keep = min(C, S)
+    shape = (cfg.num_layers, B, C, cfg.n_kv, cfg.resolved_head_dim)
+    cache_k = torch.zeros(shape, dtype=x.dtype, device=dev)
+    cache_v = torch.zeros(shape, dtype=x.dtype, device=dev)
+    pos_last = abs_pos[:, S - keep:]
+    slot_pos = torch.full((B, C), -1, dtype=torch.int32, device=dev)
+    if C >= S:
+        slot_pos[:, :S] = pos_last
+    else:
+        slots = (pos_last % C).long()                       # (B, keep)
+        bidx = torch.arange(B, device=dev)[:, None]
+        slot_pos[bidx, slots] = pos_last.to(torch.int32)
+
+    for l in range(cfg.num_layers):
+        lp = layer_params(params["layers"], l)
+        h = layers.norm_apply(cfg.norm, lp["attn_norm"], x)
+        k, v = layers.project_kv(lp["attn"], acfg, h, positions)
+        x = x + layers.attention(lp["attn"], acfg, h, positions,
+                                 kv_override=(k, v), kv_positions=abs_pos)
+        h2 = layers.norm_apply(cfg.norm, lp["mlp_norm"], x)
+        x = x + layers.mlp(lp["mlp"], h2, cfg.mlp_kind)
+        if C >= S:
+            cache_k[l, :, :S] = k
+            cache_v[l, :, :S] = v
+        else:
+            cache_k[l][bidx, slots] = k[:, S - keep:]
+            cache_v[l][bidx, slots] = v[:, S - keep:]
+
+    x = layers.norm_apply(cfg.norm, params["final_norm"], x)
+    logits = unembed(params, cfg, x[:, -1:, :])
+    cache = {"k": cache_k, "v": cache_v, "slot_pos": slot_pos, "length": S}
+    return logits, cache
+
+
+def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
+                cache: PyTree) -> tuple[torch.Tensor, PyTree]:
+    """One-token decode against the cache.
+
+    token: (B, 1) int.  Returns (logits (B,1,V), the cache advanced by one
+    token).  The new token's k/v and slot position are written into the
+    cache's tensors in place (the reference's ``dynamic_update_slice``,
+    without a copy of the cache), so the cache passed in is the one
+    returned.
+    """
+    _dense_only(cfg)
+    B = token.shape[0]
+    length = int(cache["length"])
+    positions = make_positions(cfg, B, 1, offset=length, device=token.device)
+    acfg = attn_config(cfg)
+    x = layers.embed(params["embed"], token)
+    C = cache["k"].shape[2]
+    slot = length % C
+    abs_pos = _abs_positions(positions)                     # (B, 1)
+    slot_pos = cache["slot_pos"]
+    slot_pos[:, slot] = abs_pos[:, 0]
+    kv_valid = slot_pos >= 0                                # (B, C)
+    kv_positions = slot_pos.clamp(min=0)
+
+    for l in range(cfg.num_layers):
+        lp = layer_params(params["layers"], l)
+        ck, cv = cache["k"][l], cache["v"][l]
+        h = layers.norm_apply(cfg.norm, lp["attn_norm"], x)
+        k, v = layers.project_kv(lp["attn"], acfg, h, positions)  # (B,1,kv,hd)
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+        x = x + layers.attention(lp["attn"], acfg, h, positions,
+                                 kv_override=(ck, cv),
+                                 kv_positions=kv_positions,
+                                 kv_valid=kv_valid)
+        h2 = layers.norm_apply(cfg.norm, lp["mlp_norm"], x)
+        x = x + layers.mlp(lp["mlp"], h2, cfg.mlp_kind)
+
+    x = layers.norm_apply(cfg.norm, params["final_norm"], x)
+    logits = unembed(params, cfg, x)
+    cache["length"] = length + 1
+    return logits, cache

@@ -32,6 +32,9 @@ from repro_torch import convert, optim
 from repro_torch.core import dse, snn, train_snn, workloads
 from repro_torch.core.accelerator import arch, cycle_model, resources
 from repro_torch.core.workloads import registry
+from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.train import small_config
+from repro_torch.models import registry as lm_registry
 
 torch.set_num_threads(2)
 
@@ -202,7 +205,11 @@ def test_port_imports_neither_jax_nor_repro():
          env.get("PYTHONPATH", "")])
     out = subprocess.run([sys.executable, "-c", ISOLATION], check=True,
                          capture_output=True, text=True, env=env)
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 74
+
+
+# A one-layer LM for the serving path's entry points.
+LM_CFG = small_config(lm_registry.load_arch("tinyllama_1_1b"), 64, 1, 256)
 
 
 @pytest.mark.parametrize("entry", [
@@ -216,6 +223,10 @@ def test_port_imports_neither_jax_nor_repro():
     lambda cfg, x, y: train_snn.profiled_permutations(cfg, [], x),
     lambda cfg, x, y: convert.adam_state_from_numpy({"count": 0}),
     lambda cfg, x, y: workloads.TraceCache(),
+    lambda cfg, x, y: lm_registry.init_params(torch.Generator(), LM_CFG),
+    lambda cfg, x, y: lm_registry.init_cache(LM_CFG, 1, 8),
+    lambda cfg, x, y: convert.lm_params_from_numpy({}, LM_CFG),
+    lambda cfg, x, y: launch_serve.main(["--layers", "1", "--d-model", "64"]),
 ])
 def test_entry_points_refuse_a_silent_cpu(monkeypatch, entry):
     """Without a card, an entry point called without device="cpu" raises
