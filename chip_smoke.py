@@ -102,25 +102,38 @@ script then exits non-zero and never prints its result line):
    ``torch.nn.grad.conv2d_input``.
 8. The LM serving path (it runs between phases 6d and 7), with the seven
    kernels' counters set to 0 before it and read after: all must read 0.
-   tinyllama-1.1b at full width in bf16 (22 layers, d_model 2048, 32
-   heads on 4 kv heads, d_ff 5632, vocab 32000), weights from the port's
-   ``init_params`` on a card generator seeded 0, answers the 4 requests
-   ``launch/serve.py`` draws (prompts of 4-11 tokens) through
-   ``ServeLoop(batch_size=4, max_len=128)``, 16 new tokens each, twice
-   with equal tokens: every request gets its tokens, each in [0,
-   vocab_padded), every logit finite; the prefill's ms, the median decode
-   step, tokens a second, peak memory, the decode step's least time and
-   the device's busy share of one step.  Its prefill of 31 tokens and one
-   decode step are held against ``forward`` on 4 prompts of 32 tokens at
-   positions 30 and 31, within ``LM_BF16_TOL``, and its bf16 forward
-   against a forward of the same weights widened to fp32 on the card,
-   within ``LM_BF16_FP32_TOL``; phase 1 turns TF32 and cuBLAS's
-   reduced-precision bf16 sums off.  llama3.2-3b, granite-3-2b
-   (tied embeddings) and chatglm3-6b (2-D rope) each answer the same
-   requests with 8 new tokens and the same checks.  A reduced fp32 GQA
-   config (2 layers, d_model 128, 4 heads on 1 kv head) runs on the card
-   and on the CPU from the same converted weights: logits within
-   ``LM_FP32_TOL``, equal ``ServeLoop`` tokens.
+   Every family, each config at full width in bf16 with weights from the
+   port's ``init_params`` on a card generator seeded 0, one after another
+   (each freed before the next): tinyllama-1.1b (22 layers, d_model 2048,
+   16 new tokens), llama3.2-3b, granite-3-2b (tied embeddings),
+   chatglm3-6b (2-D rope), mamba2-780m (48 Mamba2 blocks), zamba2-2.7b (54
+   blocks and 9 applications of the shared attention block) and the
+   mixtures of experts mixtral-8x7b and arctic-480b cut to 8 of 32 and 1
+   of 35 layers (their full depth does not fit one card), 8 new tokens
+   each, answer the 4 requests ``launch/serve.py`` draws (prompts of 4-11
+   tokens) through ``ServeLoop(batch_size=4, max_len=128)``;
+   seamless-m4t-large-v2 (24 + 24 layers), which the ServeLoop cannot serve
+   (it passes tokens only, as the JAX package's does), answers them over 64
+   precomputed frames each (drawn on the card from seed 0) through the
+   engine's prefill and decode steps, greedy.  Each runs twice with equal
+   tokens: every request gets its tokens, each in [0, vocab_padded), every
+   logit finite; the prefill's ms, the median decode step, tokens a
+   second, init's and serving's peak memory, the decode step's least time
+   (``lm_decode_bound``) and the device's busy share of one step.  The
+   prefill of 31 tokens and one decode step of tinyllama, mamba2, zamba2
+   and seamless are held against ``forward`` on 4 prompts of 32 tokens at
+   positions 30 and 31, within ``LM_BF16_TOL`` of their family (the
+   mixtures of experts are exempt: serving routes its groups with other
+   capacities), and tinyllama's bf16 forward against a forward of the same
+   weights widened to fp32 on the card, within ``LM_BF16_FP32_TOL``; phase
+   1 turns TF32 and cuBLAS's reduced-precision bf16 sums off.  Reduced
+   fp32 configs of every family (a 4:1 GQA transformer, and
+   tests/test_archs.py's mamba2-r, zamba2-r, seamless-r, mixtral-r and
+   arctic-r) run on the card and on the CPU from the same converted
+   weights: the MoE routing of layer 0 equal, logits within
+   ``LM_FP32_TOL``, equal tokens.  Then the SNN codes that the port adds
+   to the rate code (constant-current, time-to-first-spike, burst) and
+   ``lif_init_state`` on the card against the CPU, bit for bit.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -234,31 +247,69 @@ CELL_STEPS = 8
 FLEET_TENANTS = {"alpha": (8, 12), "beta": (8, 16)}
 FLEET_IDLE_S = 20.0
 SUPERVISED = {"steps": 75, "every": 25, "fail_at": 40}
-# Phase 8, the LM serving path: the dense configs served at full width
-# in bf16 with random weights from SEED, and the new tokens each request
-# asks for; the ServeLoop's batch and cache length; the prompts and tokens
-# of the prefill/decode-against-forward check; the reduced fp32 GQA config
-# run on the card and on the CPU.
+# Phase 8, the LM serving path: every config served at full width in bf16
+# with random weights from SEED, and the new tokens each request asks for;
+# the depth each is cut to, where its full depth does not fit one card
+# (mixtral-8x7b's 32 layers hold about 93 GB, arctic-480b's 35 about 950
+# GB); the ServeLoop's batch and cache length; the precomputed frames an
+# encoder-decoder reads; the prompts and tokens of the prefill/decode
+# against forward check; the reduced fp32 configs run on the card and on
+# the CPU (tests/test_archs.py's shapes).
 LM_ARCHS = {"tinyllama_1_1b": 16, "llama3_2_3b": 8, "granite_3_2b": 8,
-            "chatglm3_6b": 8}
+            "chatglm3_6b": 8, "mamba2_780m": 8, "zamba2_2_7b": 8,
+            "seamless_m4t_large_v2": 8, "mixtral_8x7b": 8, "arctic_480b": 8}
+LM_LAYERS = {"mixtral_8x7b": 8, "arctic_480b": 1}
 LM_BATCH, LM_MAX_LEN, LM_REQUESTS = 4, 128, 4
+LM_FRAMES = 64
 LM_CHECK = (4, 32)
 LM_REDUCED = dict(name="tinyllama-r", family="transformer", num_layers=2,
                   d_model=128, n_heads=4, n_kv=1, d_ff=192, vocab=512,
                   head_dim=32, dtype="float32")
+_SSM_R = dict(state_dim=16, head_dim=16, expand=2, conv_width=4, chunk=4)
+LM_REDUCED_FAMILIES = {
+    "mamba2-r": dict(name="mamba2-r", family="ssm", num_layers=2,
+                     d_model=64, n_heads=8, n_kv=0, d_ff=0, vocab=512,
+                     head_dim=16, rope="none", ssm=_SSM_R, dtype="float32"),
+    "zamba2-r": dict(name="zamba2-r", family="hybrid", num_layers=4,
+                     d_model=64, n_heads=4, n_kv=4, d_ff=128, vocab=512,
+                     head_dim=16, ssm=_SSM_R, shared_attn_every=2,
+                     dtype="float32"),
+    "seamless-r": dict(name="seamless-r", family="encdec", num_layers=2,
+                       encoder_layers=2, d_model=128, n_heads=4, n_kv=4,
+                       d_ff=256, vocab=512, head_dim=32, frontend="audio",
+                       dtype="float32"),
+    "mixtral-r": dict(name="mixtral-r", family="moe", num_layers=2,
+                      d_model=128, n_heads=4, n_kv=2, d_ff=256, vocab=512,
+                      head_dim=32, window=16,
+                      moe=dict(num_experts=4, top_k=2, capacity_factor=2.0),
+                      dtype="float32"),
+    "arctic-r": dict(name="arctic-r", family="moe", num_layers=2,
+                     d_model=128, n_heads=4, n_kv=2, d_ff=128, vocab=512,
+                     head_dim=32,
+                     moe=dict(num_experts=8, top_k=2, capacity_factor=2.0,
+                              dense_residual=True, dense_d_ff=128),
+                     dtype="float32"),
+}
 # Prefill (31 tokens) and one decode step against the full forward, in
-# bf16 at full width: max |logit difference| / max |logit|.  bf16 rounds
-# each product's output, and a 31-row and a 32-row product need not round
-# alike.  Measured 0.0133 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
-# §6); the tolerance is three times that.
-LM_BF16_TOL = 0.04
+# bf16 at full width: max |logit difference| / max |logit|, per family.
+# bf16 rounds each product's output, and a 31-row and a 32-row product
+# need not round alike; a Mamba2 block's prefill carries its state out of
+# the chunked scan, its decode steps the recurrence.  Each tolerance is
+# three times the value measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md §6), rounded up: tinyllama-1.1b 0.0133 (the transformer
+# family's), mamba2-780m 0.02946, zamba2-2.7b 0.03523, seamless-m4t-
+# large-v2 0.01316.  The mixture of experts is exempt: serving and the
+# forward route their groups with other capacities by design
+# (tests/test_archs.py skips it).
+LM_BF16_TOL = {"transformer": 0.04, "ssm": 0.09, "hybrid": 0.11,
+               "encdec": 0.04}
 # The same bf16 forward against a forward of its weights widened to fp32
 # on the card (TF32 off, bf16 products summed in fp32): what bf16's
 # rounding of every activation adds up to over 22 layers.  Measured 0.0162
 # on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6); the tolerance is three
 # times that, rounded up.
 LM_BF16_FP32_TOL = 0.05
-# The reduced fp32 config, card against CPU (TF32 off): the same ops,
+# The reduced fp32 configs, card against CPU (TF32 off): the same ops,
 # summed in other orders.
 LM_FP32_TOL = dict(rtol=1e-5, atol=5e-5)
 # Published peaks of one H100 SXM at its 700 W limit (dense, no sparsity).
@@ -681,16 +732,113 @@ def fleet_phase(torch, dev, miss, solo_seed1) -> dict:
     return out
 
 
+def tree_paths(tree, prefix=()):
+    """(key path, leaf) of every leaf of a param tree."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    return [pl for k, v in tree.items()
+            for pl in tree_paths(v, prefix + (k,))]
+
+
+def lm_decode_bound(cfg, params) -> tuple[float, str]:
+    """One decode step at LM_BATCH: every weight the step reads, read
+    once (the embedding only in its LM_BATCH gathered rows unless it
+    is also the unembedding; no encoder, and no cross-attention K/V
+    projection, which prefill ran), every expert of a MoE layer (each
+    runs its capacity's slots); every KV and cross K/V cache read
+    once; each Mamba2 state and conv history read and written; and 2
+    operations a multiply-add of every weight product (an expert's
+    with its capacity's rows, a hybrid's shared block once an
+    application) and of attention against its cache, at bf16 peaks.
+    ``params`` may live on the meta device."""
+    from repro_torch.models import encdec, registry
+
+    B = LM_BATCH
+    uses = {"layers": B, "mamba": B, "decoder": B, "final_norm": B,
+            "lm_head": B}
+    if cfg.family == "hybrid":
+        uses["shared"] = B * (cfg.num_layers // cfg.shared_attn_every)
+    cap = 0
+    if cfg.moe is not None:
+        cap = max(int(cfg.moe.top_k * B / cfg.moe.num_experts
+                      * cfg.moe.capacity_factor), 1)
+    nbytes = macs = 0
+    for part, tree in params.items():
+        if part not in uses:
+            continue
+        for path, t in tree_paths(tree):
+            if part == "decoder" and path[:1] == ("cross_attn",) and \
+                    path[1] in ("wk", "wv"):
+                continue
+            nbytes += t.numel() * t.element_size()
+            rows = cap if path[:1] == ("moe",) and path[1].startswith(
+                "w_") else uses[part]
+            macs += t.numel() * rows
+    emb = params["embed"]["embedding"]
+    nbytes += (emb.numel() if cfg.tie_embeddings
+               else B * emb.shape[1]) * emb.element_size()
+    if cfg.tie_embeddings:
+        macs += emb.numel() * B
+    cache = (encdec.init_cache(cfg, B, LM_MAX_LEN, enc_len=LM_FRAMES,
+                               device="meta")
+             if cfg.family == "encdec" else
+             registry.init_cache(cfg, B, LM_MAX_LEN, device="meta"))
+    for name, t in cache.items():
+        if isinstance(t, int) or name == "slot_pos":
+            continue
+        size = t.numel() * t.element_size()
+        nbytes += 2 * size if name in ("h", "conv") else size
+        if name in ("k", "v", "cross_k", "cross_v"):
+            # scores against k, then the weighted sum of v
+            apps, _, slots, _, hd = t.shape
+            macs += apps * B * cfg.n_heads * slots * hd
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2 * macs / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def encoders_on_card(torch, dev) -> dict:
+    """The SNN codes of the paper's Sec. II-A that ``encoding`` adds to the
+    rate code (constant-current, time-to-first-spike, burst) and
+    ``lif.lif_init_state``, on the card against the CPU, bit for bit, on
+    DVS-sized intensities with x = 0, x = 1 and burst's half-way points
+    among them."""
+    from repro_torch.core import encoding, lif
+
+    x = torch.rand((LM_BATCH, 32, 32, 2),
+                   generator=torch.Generator().manual_seed(SEED))
+    x[0, 0, :6, 0] = torch.tensor([0.0, 1.0, 0.125, 0.375, 0.625, 0.875])
+    codes = {
+        "constant_current": lambda x: encoding.constant_current_encode(x, 8),
+        "ttfs": lambda x: encoding.ttfs_encode(x, 8),
+        "burst": lambda x: encoding.burst_encode(
+            torch.Generator(device=x.device), x, 8)}
+    out = {}
+    for name, code in codes.items():
+        card, host = code(x.to(dev)).cpu(), code(x)
+        if not torch.equal(card, host):
+            raise AssertionError(f"the {name} code differs between the "
+                                 "card and the CPU")
+        out[name] = {"spikes": float(host.sum())}
+    u, s = lif.lif_init_state(x.shape, device=dev)
+    if u.device.type != dev.type or u.any() or s.any():
+        raise AssertionError("lif_init_state is not zeros on the card")
+    log(f"  SNN codes on the card equal the CPU's bit for bit: "
+        f"{sorted(codes)}, and lif_init_state")
+    return out
+
+
 def lm_phase(torch, dev) -> dict:
     """Phase 8: the LM serving path (see the module docstring).  The seven
     kernels' counters are set to 0 before it and read after; the path
     launches none of them."""
     from repro_torch import convert
     from repro_torch.checkpoint import store
-    from repro_torch.configs.base import ArchConfig
+    from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import make_requests
-    from repro_torch.models import registry
+    from repro_torch.models import encdec, layers, moe, registry
     from repro_torch.serve import engine
 
     def sync():
@@ -714,6 +862,19 @@ def lm_phase(torch, dev) -> dict:
             return out
         return call
 
+    def frames_for(cfg, n, d):
+        """``n`` sequences of LM_FRAMES precomputed frames in the model's
+        dtype, from a generator on ``d`` seeded SEED."""
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        return torch.randn((n, LM_FRAMES, cfg.d_model), dtype=dtype,
+                           device=d, generator=torch.Generator(device=d)
+                           .manual_seed(SEED))
+
+    def check_tokens(cfg, got, new_tokens):
+        if [len(g) for g in got] != [new_tokens] * LM_REQUESTS or not all(
+                0 <= t < cfg.vocab_padded for g in got for t in g):
+            raise AssertionError(f"{cfg.name}: the requests got {got}")
+
     def serve(cfg, params, new_tokens):
         """One ServeLoop run of LM_REQUESTS requests: their tokens, the
         prefill's and each decode step's seconds, and the run's wall."""
@@ -729,31 +890,54 @@ def lm_phase(torch, dev) -> dict:
         sync()
         wall = time.perf_counter() - t0
         got = [r.generated for r in reqs]
-        if [len(g) for g in got] != [new_tokens] * LM_REQUESTS or not all(
-                0 <= t < cfg.vocab_padded for g in got for t in g):
-            raise AssertionError(f"{cfg.name}: the requests got {got}")
+        check_tokens(cfg, got, new_tokens)
         return got, pre, dec, wall
 
-    def decode_bound(cfg, params) -> tuple[float, str]:
-        """One decode step at LM_BATCH: every weight read once (the
-        embedding only in its LM_BATCH gathered rows unless it is also the
-        unembedding), the cache read, its new slots written, and
-        2 multiply-adds a weight a sequence, at bf16 peaks."""
-        leaves = [t for sub in (params["layers"], params["final_norm"],
-                                params.get("lm_head", {}))
-                  for t in store.leaves(sub)]
-        nbytes = sum(t.numel() * t.element_size() for t in leaves)
-        emb = params["embed"]["embedding"]
-        nbytes += (emb.numel() if cfg.tie_embeddings
-                   else LM_BATCH * emb.shape[1]) * emb.element_size()
-        kv = (2 * cfg.num_layers * LM_BATCH * LM_MAX_LEN * cfg.n_kv
-              * cfg.resolved_head_dim * emb.element_size())
-        macs = sum(t.numel() for t in leaves) + (
-            emb.numel() if cfg.tie_embeddings else 0)
-        t_bytes = (nbytes + kv) / PEAK_BYTES_PER_S
-        t_ops = 2 * macs * LM_BATCH / PEAK_BF16_FLOPS
-        return (max(t_bytes, t_ops) * 1e3,
-                "bytes" if t_bytes >= t_ops else "operations")
+    def serve_steps(cfg, params, new_tokens, frames=None):
+        """An encoder-decoder, which the ServeLoop cannot serve (it passes
+        tokens only): the same requests, left-padded, over LM_FRAMES
+        frames each (``frames``, or drawn on the params' device), through
+        the engine's prefill and decode steps, greedy.  Returns what
+        ``serve`` does."""
+        d = engine.params_device(params)
+        if frames is None:
+            frames = frames_for(cfg, LM_BATCH, d)
+        reqs = make_requests(cfg, LM_REQUESTS, new_tokens)
+        plen = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((LM_BATCH, plen), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, plen - len(r.prompt):] = r.prompt
+        pre, dec = [], []
+        prefill = timed(engine.build_prefill_step(cfg, LM_MAX_LEN), pre,
+                        lambda o: o[0])
+        decode = timed(engine.build_decode_step(cfg), dec,
+                       lambda o: o["logits"])
+        sync()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            batch = {"tokens": torch.from_numpy(toks).to(d),
+                     "frames": frames}
+            logits, cache = prefill(params, batch)
+            token = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            cols = [token[:, 0].tolist()]
+            for _ in range(new_tokens - 1):
+                out = decode(params, {"token": token, "cache": cache})
+                token, cache = out["next_token"][:, None], out["cache"]
+                cols.append(token[:, 0].tolist())
+        sync()
+        wall = time.perf_counter() - t0
+        got = [list(g) for g in zip(*cols)][:LM_REQUESTS]
+        check_tokens(cfg, got, new_tokens)
+        return got, pre, dec, wall
+
+    def run(cfg, params, new_tokens, frames=None):
+        if cfg.family == "encdec":
+            return serve_steps(cfg, params, new_tokens, frames)
+        return serve(cfg, params, new_tokens)
+
+    def extras(cfg, n, d):
+        return ({"frames": frames_for(cfg, n, d)}
+                if cfg.family == "encdec" else {})
 
     def busy_share(cfg, params) -> dict:
         """One decode step after a prefill and a warm-up step: its wall
@@ -764,7 +948,7 @@ def lm_phase(torch, dev) -> dict:
                              .manual_seed(SEED))
         with torch.inference_mode():
             _, cache = engine.build_prefill_step(cfg, LM_MAX_LEN)(
-                params, {"tokens": toks})
+                params, dict(extras(cfg, LM_BATCH, dev), tokens=toks))
             state = {"token": toks[:, -1:].to(torch.int32), "cache": cache}
 
             def one():
@@ -777,21 +961,23 @@ def lm_phase(torch, dev) -> dict:
         return ({k: widened(v) for k, v in tree.items()}
                 if isinstance(tree, dict) else tree.float())
 
-    def against_forward(cfg, params) -> tuple[float, float]:
-        """Prefill of LM_CHECK prompts' first S-1 tokens, then one decode
-        step, against the full forward at positions S-2 and S-1; and that
-        bf16 forward against one of the same weights widened to fp32 (TF32
-        off) at every position.  Each as max |difference| / max |logit|
-        of the forward it is held against."""
+    def check_prompts(cfg):
         n, S = LM_CHECK
-        toks = torch.randint(1, cfg.vocab, (n, S), device=dev,
+        return torch.randint(1, cfg.vocab, (n, S), device=dev,
                              generator=torch.Generator(device=dev)
                              .manual_seed(SEED + 1))
+
+    def against_forward(cfg, params) -> float:
+        """Prefill of LM_CHECK prompts' first S-1 tokens, then one decode
+        step, against the full forward at positions S-2 and S-1, as max
+        |difference| / max |logit| of the forward."""
+        toks = check_prompts(cfg)
+        S = toks.shape[1]
         with torch.inference_mode():
-            ref, _ = registry.forward(params, cfg, {"tokens": toks})
-            pre, cache = registry.prefill(params, cfg,
-                                          {"tokens": toks[:, :S - 1]},
-                                          max_len=S)
+            extra = extras(cfg, toks.shape[0], dev)
+            ref, _ = registry.forward(params, cfg, dict(extra, tokens=toks))
+            pre, cache = registry.prefill(
+                params, cfg, dict(extra, tokens=toks[:, :S - 1]), max_len=S)
             dec, _ = registry.decode_step(params, cfg, toks[:, S - 1:],
                                           cache)
             scale = float(ref[:, S - 2:].float().abs().max())
@@ -799,18 +985,27 @@ def lm_phase(torch, dev) -> dict:
                       float((dec[:, 0] - ref[:, S - 1]).float().abs().max()))
             if not (finite(ref) and finite(pre) and finite(dec)):
                 raise AssertionError(f"{cfg.name}: a non-finite logit")
+        return err / scale
+
+    def against_fp32(cfg, params) -> float:
+        """The bf16 forward against one of the same weights widened to
+        fp32 (TF32 off) at every position, as max |difference| / max
+        |logit| of the fp32 forward."""
+        toks = check_prompts(cfg)
+        with torch.inference_mode():
+            ref, _ = registry.forward(params, cfg, {"tokens": toks})
             wide, _ = registry.forward(
                 widened(params), dataclasses.replace(cfg, dtype="float32"),
                 {"tokens": toks})
-            err32 = float((ref.float() - wide).abs().max()) / float(
+            return float((ref.float() - wide).abs().max()) / float(
                 wide.abs().max())
-            del wide
-        return err / scale, err32
 
     out = {"configs": {}}
     ops.reset_launch_counts()
     for arch_id, new_tokens in LM_ARCHS.items():
         cfg = registry.load_arch(arch_id)
+        if arch_id in LM_LAYERS:
+            cfg = dataclasses.replace(cfg, num_layers=LM_LAYERS[arch_id])
         base = 0
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -822,81 +1017,132 @@ def lm_phase(torch, dev) -> dict:
             torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
         sync()
         init_s = time.perf_counter() - t0
-        first, *_ = serve(cfg, params, new_tokens)          # warm-up
-        got, pre, dec, wall = serve(cfg, params, new_tokens)
+        row = {"family": cfg.family, "layers": cfg.num_layers,
+               "held_before_gib": base / 2 ** 30,
+               "full_layers": registry.load_arch(arch_id).num_layers,
+               "d_model": cfg.d_model, "heads": cfg.n_heads,
+               "kv_heads": cfg.n_kv,
+               "params": sum(t.numel() for t in store.leaves(params)),
+               "weights_gib": sum(t.numel() * t.element_size()
+                                  for t in store.leaves(params)) / 2 ** 30,
+               "init_s": init_s}
+        if dev.type == "cuda":
+            # init draws each layer and copies it into the stacked leaves
+            # (a single layer is not copied)
+            row["init_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                    - base) / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+        first, *_ = run(cfg, params, new_tokens)            # warm-up
+        got, pre, dec, wall = run(cfg, params, new_tokens)
         if got != first:
             raise AssertionError(f"{cfg.name}: two runs gave other tokens")
-        row = {"layers": cfg.num_layers, "d_model": cfg.d_model,
-               "heads": cfg.n_heads, "kv_heads": cfg.n_kv,
-               "params": sum(t.numel() for t in store.leaves(params)),
-               "init_s": init_s, "prefill_ms": pre[0] * 1e3,
-               "decode_ms_median": statistics.median(dec) * 1e3,
-               "decode_steps": len(dec), "run_s": wall,
-               "tokens_per_s": LM_REQUESTS * new_tokens / wall,
-               "tokens": got}
+        row.update({"prefill_ms": pre[0] * 1e3,
+                    "decode_ms_median": statistics.median(dec) * 1e3,
+                    "decode_steps": len(dec), "run_s": wall,
+                    "tokens_per_s": LM_REQUESTS * new_tokens / wall,
+                    "tokens": got})
         if dev.type == "cuda":
-            # serving's, above what the earlier phases still hold (the
-            # checks below widen tinyllama's weights to fp32)
+            # serving's peak: the weights and what the two runs allocate
             row["peak_gib"] = (torch.cuda.max_memory_allocated()
                                - base) / 2 ** 30
-        row["decode_bound_ms"], row["decode_bound_by"] = decode_bound(
+        row["decode_bound_ms"], row["decode_bound_by"] = lm_decode_bound(
             cfg, params)
-        if arch_id == "tinyllama_1_1b":
-            (row["rel_err_vs_forward"],
-             row["rel_err_vs_fp32"]) = against_forward(cfg, params)
-            if row["rel_err_vs_forward"] > LM_BF16_TOL:
+        family = "transformer" if cfg.family == "moe" else cfg.family
+        if cfg.moe is None and (family != "transformer"
+                                or arch_id == "tinyllama_1_1b"):
+            row["rel_err_vs_forward"] = against_forward(cfg, params)
+            if row["rel_err_vs_forward"] > LM_BF16_TOL[family]:
                 raise AssertionError(
                     f"{cfg.name}: prefill/decode against forward "
-                    f"{row['rel_err_vs_forward']:.4g} > {LM_BF16_TOL}")
+                    f"{row['rel_err_vs_forward']:.4g} > "
+                    f"{LM_BF16_TOL[family]}")
+        if arch_id == "tinyllama_1_1b":
+            row["rel_err_vs_fp32"] = against_fp32(cfg, params)
             if row["rel_err_vs_fp32"] > LM_BF16_FP32_TOL:
                 raise AssertionError(
                     f"{cfg.name}: the bf16 forward against the fp32 one "
                     f"{row['rel_err_vs_fp32']:.4g} > {LM_BF16_FP32_TOL}")
+        if dev.type == "cuda":
             row["decode_step"] = busy_share(cfg, params)
         del params
         out["configs"][arch_id] = row
-        log(f"  {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        cut = (f"{cfg.num_layers} of {row['full_layers']} layers"
+               if arch_id in LM_LAYERS else f"{cfg.num_layers} layers")
+        log(f"  {cfg.name} ({cut}, d_model {cfg.d_model}, "
             f"{row['params'] / 1e9:.3f} B params, bf16): prefill "
             f"{row['prefill_ms']:.2f} ms, decode {row['decode_ms_median']:.2f}"
             f" ms a step (median of {len(dec)}; bound "
             f"{row['decode_bound_ms']:.3f} ms, {row['decode_bound_by']}), "
             f"{row['tokens_per_s']:.1f} tokens/s, peak "
-            f"{row.get('peak_gib', float('nan')):.2f} GiB")
+            f"{row.get('peak_gib', float('nan')):.2f} GiB (init "
+            f"{row.get('init_peak_gib', float('nan')):.2f}; "
+            f"{row['held_before_gib']:.2f} held before)")
         if "rel_err_vs_forward" in row:
-            st = row["decode_step"]
             log(f"    prefill + decode against forward: "
                 f"{row['rel_err_vs_forward']:.4g} of max |logit| "
-                f"(tolerance {LM_BF16_TOL}); bf16 forward against fp32 "
-                f"{row['rel_err_vs_fp32']:.4g} (tolerance "
-                f"{LM_BF16_FP32_TOL}); one decode step "
-                f"{st['wall_ms']:.2f} ms, device busy "
+                f"(tolerance {LM_BF16_TOL[family]})")
+        if "rel_err_vs_fp32" in row:
+            log(f"    bf16 forward against fp32 {row['rel_err_vs_fp32']:.4g}"
+                f" (tolerance {LM_BF16_FP32_TOL})")
+        if "decode_step" in row:
+            st = row["decode_step"]
+            log(f"    one decode step {st['wall_ms']:.2f} ms, device busy "
                 f"{st['device_busy_ms']:.3f} ms, {st['kernels']} kernels")
 
-    # the reduced fp32 GQA config: the same converted weights on the card
-    # and on the CPU
-    cfg = ArchConfig(**LM_REDUCED)
-    tree = convert.lm_params_to_numpy(registry.init_params(
-        torch.Generator().manual_seed(SEED), cfg, device="cpu"))
-    on = {d: convert.lm_params_from_numpy(tree, cfg, device=d)
-          for d in (dev, torch.device("cpu"))}
-    toks = np.random.default_rng(SEED).integers(1, cfg.vocab, (LM_BATCH, 24))
-    logits, tokens = {}, {}
-    for d, params in on.items():
-        with torch.inference_mode():
-            logits[d.type], _ = registry.forward(
-                params, cfg, {"tokens": torch.from_numpy(toks).to(d)})
-        tokens[d.type] = serve(cfg, params, 16)[0]
-    card, host = logits[dev.type].cpu().numpy(), logits["cpu"].numpy()
-    np.testing.assert_allclose(card, host, **LM_FP32_TOL)
-    if tokens[dev.type] != tokens["cpu"]:
-        raise AssertionError("the reduced config's tokens differ between "
-                             "the card and the CPU")
-    out["reduced_fp32"] = {"max_abs_logit_diff": float(
-        np.abs(card - host).max()), "tokens_equal": True}
-    log(f"  {cfg.name} fp32: card against CPU, max |logit difference| "
-        f"{out['reduced_fp32']['max_abs_logit_diff']:.3g}, "
-        f"ServeLoop tokens equal")
+    # the reduced fp32 configs: the same converted weights on the card and
+    # on the CPU
+    out["reduced_fp32"] = {}
+    for kw in [LM_REDUCED] + list(LM_REDUCED_FAMILIES.values()):
+        kw = dict(kw)
+        if "moe" in kw:
+            kw["moe"] = MoEConfig(**kw["moe"])
+        if "ssm" in kw:
+            kw["ssm"] = SSMConfig(**kw["ssm"])
+        cfg = ArchConfig(**kw)
+        tree = convert.lm_params_to_numpy(registry.init_params(
+            torch.Generator().manual_seed(SEED), cfg, device="cpu"))
+        on = {d: convert.lm_params_from_numpy(tree, cfg, device=d)
+              for d in (dev, torch.device("cpu"))}
+        rng = np.random.default_rng(SEED)
+        toks = rng.integers(1, cfg.vocab, (LM_BATCH, 24))
+        row = {}
+        if cfg.moe is not None:
+            # the routing first: layer 0's experts for the same tokens
+            xs = rng.standard_normal((LM_BATCH * 24, cfg.d_model)).astype(
+                np.float32)
+            routes = {}
+            for d, params in on.items():
+                lp = layers.layer_params(params["layers"]["moe"], 0)
+                probs = moe._router_probs(lp, torch.from_numpy(xs).to(d))
+                routes[d.type] = moe._topk_routing(
+                    probs, cfg.moe.top_k, LM_BATCH * 24)[0].cpu()
+            if not torch.equal(routes[dev.type], routes["cpu"]):
+                raise AssertionError(f"{cfg.name}: the routing differs "
+                                     "between the card and the CPU")
+            row["routing_equal"] = True
+        logits, tokens = {}, {}
+        # frames drawn on the CPU, so that both devices read the same
+        host_extra = extras(cfg, LM_BATCH, torch.device("cpu"))
+        for d, params in on.items():
+            extra = {k: v.to(d) for k, v in host_extra.items()}
+            with torch.inference_mode():
+                logits[d.type], _ = registry.forward(params, cfg, dict(
+                    extra, tokens=torch.from_numpy(toks).to(d)))
+            tokens[d.type] = run(cfg, params, 16, extra.get("frames"))[0]
+        card, host = logits[dev.type].cpu().numpy(), logits["cpu"].numpy()
+        np.testing.assert_allclose(card, host, **LM_FP32_TOL,
+                                   err_msg=cfg.name)
+        if tokens[dev.type] != tokens["cpu"]:
+            raise AssertionError(f"{cfg.name}: the tokens differ between "
+                                 "the card and the CPU")
+        row.update({"max_abs_logit_diff": float(np.abs(card - host).max()),
+                    "tokens_equal": True})
+        out["reduced_fp32"][cfg.name] = row
+        log(f"  {cfg.name} fp32: card against CPU, max |logit difference| "
+            f"{row['max_abs_logit_diff']:.3g}, tokens equal"
+            + (", routing equal" if cfg.moe is not None else ""))
 
+    out["encoders"] = encoders_on_card(torch, dev)
     out["launches"] = ops.launch_counts()
     if any(out["launches"].values()):
         raise AssertionError(f"the LM serving path launched SNN kernels: "
@@ -2190,7 +2436,7 @@ def main() -> int:
 
     # ---- 8. the LM serving path (run before the timing, so that its
     # numbers come from a card no timing loop has just heated) -----------
-    with Phase("the LM serving path: four dense configs at full width"):
+    with Phase("the LM serving path: every family at full width"):
         report["lm"] = lm_phase(torch, dev)
 
     # ---- 7. timing at the main path's shapes and traffic -----------------

@@ -9,8 +9,10 @@ shaped as the parameters; as NumPy it is ``{"count", "mu", "nu"}``.  The
 exchange format is NumPy, so neither package imports the other.
 
 An LM's parameters (``lm_params_from_numpy``/``lm_params_to_numpy``) are
-the reference's tree: nested dicts with the stacked leading layer axis,
-leaves in ``cfg.dtype``.
+the reference's tree: nested dicts with the stacked leading layer axes,
+each leaf in the dtype that ``init_params`` gives it: ``cfg.dtype``, except
+the float32 leaves of a Mamba2 block (``A_log``, ``dt_bias``, ``D``) in
+every model.
 """
 from __future__ import annotations
 
@@ -58,24 +60,30 @@ def adam_state_to_numpy(state: tuple[AdamState, ScaleState]) -> dict:
 
 def lm_params_from_numpy(tree: Any, cfg: ArchConfig,
                          device: DeviceLike = None) -> Any:
-    """A nested dict of NumPy leaves -> the same tree of ``cfg.dtype``
-    tensors on ``device``.  JAX's bf16 leaves come out of ``np.asarray`` as
-    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects, so every
-    leaf goes through float32 first: widening a bf16 value and narrowing it
-    back are both exact."""
+    """A nested dict of NumPy leaves -> the same tree of tensors on
+    ``device``, each leaf in the dtype the port's ``init_params`` gives it
+    (read from an init on the meta device, which allocates nothing).  JAX's
+    bf16 leaves come out of ``np.asarray`` as ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` rejects, so every leaf goes through float32 first:
+    widening a bf16 value and narrowing it back are both exact."""
+    from repro_torch.models import registry
+
     dev = resolve(device)
-    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    like = registry.init_params(torch.Generator(), cfg, device="meta")
 
-    def leaf(v):
-        t = torch.from_numpy(np.array(v, dtype=np.float32))
-        return t.to(device=dev, dtype=dtype)
-
-    def walk(node):
+    def walk(node, ref):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return leaf(node)
+            if set(node) != set(ref):
+                raise KeyError(f"{cfg.name}: keys {sorted(node)} where "
+                               f"init_params has {sorted(ref)}")
+            return {k: walk(v, ref[k]) for k, v in node.items()}
+        t = torch.from_numpy(np.array(node, dtype=np.float32))
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{cfg.name}: a leaf of shape {tuple(t.shape)} "
+                             f"where init_params has {tuple(ref.shape)}")
+        return t.to(device=dev, dtype=ref.dtype)
 
-    return walk(tree)
+    return walk(tree, like)
 
 
 def lm_params_to_numpy(tree: Any) -> Any:

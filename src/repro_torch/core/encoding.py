@@ -2,6 +2,9 @@
 
 * **Rate coding**: pixel intensity is the Bernoulli spike probability of
   every time step.
+* **Constant-current, time-to-first-spike and burst coding**: the other
+  codes of the paper's Sec. II-A, used for ablations; all three are
+  deterministic.
 * **Population coding**: the classification layer holds ``pcr`` neurons
   per class, laid out class-major; the predicted class is the argmax of the
   summed spike counts of each class's pool.
@@ -31,6 +34,37 @@ def rate_encode(generator: torch.Generator, x: torch.Tensor,
     spikes in {0, 1}.  ``generator`` lives on ``x``'s device."""
     return rate_code(rate_uniforms(generator, x.shape, num_steps, x.device),
                      x)
+
+
+def constant_current_encode(x: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """Direct (constant-current) encoding: the analog input is the synaptic
+    current of every step.  (B, ...) -> (T, B, ...), a broadcast view."""
+    return x.expand((num_steps,) + tuple(x.shape))
+
+
+def _step_index(num_steps: int, ndim: int, device) -> torch.Tensor:
+    return torch.arange(num_steps, dtype=torch.int32, device=device).reshape(
+        (num_steps,) + (1,) * ndim)
+
+
+def ttfs_encode(x: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """Time-to-first-spike coding: x in [0, 1] -> (T, B, ...) with one
+    spike at step floor((1 - x) * (T - 1)); x == 0 never spikes."""
+    t_spike = torch.floor((1.0 - x) * (num_steps - 1)).to(torch.int32)
+    steps = _step_index(num_steps, x.ndim, x.device)
+    spikes = (steps == t_spike[None]).to(torch.float32)
+    return spikes * (x[None] > 0)
+
+
+def burst_encode(generator: torch.Generator, x: torch.Tensor, num_steps: int,
+                 max_burst: int = 4) -> torch.Tensor:
+    """Burst coding: intensity maps to the number of leading spikes,
+    round(x * max_burst), halves to even.  ``generator`` is taken for the
+    reference's signature (it takes a key) and draws nothing."""
+    del generator
+    n_spikes = torch.round(x * max_burst).to(torch.int32)
+    steps = _step_index(num_steps, x.ndim, x.device)
+    return (steps < n_spikes[None]).to(torch.float32)
 
 
 def population_pool(spike_counts: torch.Tensor,

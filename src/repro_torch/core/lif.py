@@ -60,3 +60,10 @@ def lif_step(u_prev: torch.Tensor, s_prev: torch.Tensor,
     else:
         raise ValueError(f"unknown reset mechanism {p.reset_mechanism!r}")
     return u, spike_fn(u - p.threshold, p.slope)
+
+
+def lif_init_state(shape, dtype=torch.float32, *, device: torch.device
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero membrane potentials and spikes, (u, s), of ``shape``."""
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))

@@ -5,8 +5,12 @@
 
 ``--full`` serves the architecture at its published widths in its own
 dtype; without it ``small_config`` scales it down to ``--d-model``,
-``--layers`` and ``--vocab`` in fp32.  Weights are random, drawn from seed
-0 on the device, which is the card unless ``--device cpu`` is given.
+``--layers`` and ``--vocab`` in fp32 (a hybrid's ``--layers`` must be a
+multiple of its ``shared_attn_every``).  Weights are random, drawn from
+seed 0 on the device, which is the card unless ``--device cpu`` is given.
+Every family but ``encdec`` serves here; the serving loop passes tokens
+only, so an encoder-decoder fails for want of ``frames``, as in the JAX
+package.
 """
 from __future__ import annotations
 

@@ -17,12 +17,63 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 PyTree = Any
+
+
+# ---------------------------------------------------------------------------
+# Stacked layers
+# ---------------------------------------------------------------------------
+
+def layer_params(tree: PyTree, l: int) -> PyTree:
+    """Layer ``l``'s params: every stacked leaf indexed at ``l`` (views).
+    The reference's ``lax.scan`` over a stacked tree is a Python loop over
+    ``l`` here."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, l) for k, v in tree.items()}
+    return tree[l]
+
+
+def _stack_into(dst: PyTree, src: PyTree, l: int) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _stack_into(dst[k], v, l)
+        else:
+            dst[k][l].copy_(v)
+
+
+def _empty_stacked(tree: PyTree, n: int) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _empty_stacked(v, n) for k, v in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def _one_stacked(tree: PyTree) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _one_stacked(v) for k, v in tree.items()}
+    return tree.unsqueeze(0)
+
+
+def init_stacked(make_layer: Callable[[], PyTree], n: int) -> PyTree:
+    """``n`` calls of ``make_layer`` stacked on a new leading axis (the
+    reference's ``vmap`` of a layer init).  Each layer is drawn and copied
+    into the stacked leaves in turn, so init holds one layer beyond the
+    model; a single layer is its own leaves viewed with the axis, with no
+    copy."""
+    if n == 1:
+        return _one_stacked(make_layer())
+    stacked = None
+    for l in range(n):
+        lp = make_layer()
+        if stacked is None:
+            stacked = _empty_stacked(lp, n)
+        _stack_into(stacked, lp, l)
+        del lp
+    return stacked
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,7 @@
 """Architecture registry: architecture id -> ``ArchConfig``, and family ->
-(init, forward, prefill, decode_step, init_cache).
-
-Only the dense ``transformer`` family is ported.  The ``moe``, ``ssm``,
-``hybrid`` and ``encdec`` families raise ``NotImplementedError`` (ROADMAP
-§1 orders them); their configs load all the same, equal to the JAX
-package's.  The reference's ``*_input_specs`` and ``concrete_batch`` belong
-to the dry-run contract (``launch/dryrun.py``) and come with it.
+(init, forward, prefill, decode_step, init_cache), for every family of the
+JAX package.  The reference's ``*_input_specs`` and ``concrete_batch``
+belong to the dry-run contract (``launch/dryrun.py``) and come with it.
 """
 from __future__ import annotations
 
@@ -16,21 +12,16 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 
 PyTree = Any
 
 _FAMILY = {
     "transformer": transformer,
-}
-
-#: Families of the JAX package that wait for their slice, with the
-#: ROADMAP §1 item that brings each.
-_NOT_PORTED = {
-    "moe": "moe, with distributed/{sharding,pipeline,compression}.py",
-    "ssm": "the ssm and hybrid serving paths",
-    "hybrid": "the ssm and hybrid serving paths",
-    "encdec": "encdec",
+    "moe": transformer,           # MoE rides the transformer stack
+    "ssm": ssm,
+    "hybrid": hybrid,
+    "encdec": encdec,
 }
 
 ARCH_IDS = [
@@ -46,10 +37,6 @@ def load_arch(arch_id: str) -> ArchConfig:
 
 
 def family_module(cfg: ArchConfig):
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP §1: {_NOT_PORTED[cfg.family]})")
     return _FAMILY[cfg.family]
 
 

@@ -1,15 +1,15 @@
-"""Decoder-only transformer family, dense layers (llama3.2, granite,
-tinyllama, chatglm3, the qwen2-vl backbone).
+"""Decoder-only transformer family (llama3.2, granite, tinyllama,
+chatglm3, the qwen2-vl backbone, and mixtral and arctic with a mixture of
+experts in place of the MLP, ``cfg.moe``).
 
 Layers are *stacked*: every layer-param leaf carries a leading ``L`` dim,
 as in the JAX package, whose ``lax.scan`` over ``params["layers"]`` is a
 Python loop here that indexes the stacked leaves.  Params and caches are
 plain dicts of tensors on one device; functions take the device of their
 inputs, and ``init_params``/``init_cache`` take an explicit ``device``.
-
-A layer with a mixture of experts (``cfg.moe``) is not ported yet
-(ROADMAP §1): every entry point refuses it, never falling back to a
-dense MLP.
+As in the reference, ``forward`` routes a MoE layer's groups all at once
+(its training mode, ``group_mode="vmap"``) and ``prefill``/``decode_step``
+one group at a time (``"scan"``).
 """
 from __future__ import annotations
 
@@ -19,20 +19,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_lib
 
 PyTree = Any
 
 
 def _dtype(cfg: ArchConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers are not ported yet "
-            "(ROADMAP §1: moe with distributed/sharding.py)")
 
 
 def attn_config(cfg: ArchConfig) -> layers.AttnConfig:
@@ -43,65 +36,42 @@ def attn_config(cfg: ArchConfig) -> layers.AttnConfig:
         window=cfg.window, causal=True)
 
 
-def layer_params(tree: PyTree, l: int) -> PyTree:
-    """Layer ``l``'s params: every stacked leaf indexed at ``l`` (views)."""
-    if isinstance(tree, dict):
-        return {k: layer_params(v, l) for k, v in tree.items()}
-    return tree[l]
-
-
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
 
 def init_layer(generator: torch.Generator, cfg: ArchConfig, dtype, *,
                device: torch.device) -> PyTree:
-    return {
+    p = {
         "attn_norm": layers.norm_init(cfg.norm, cfg.d_model, dtype,
                                       device=device),
         "attn": layers.attn_init(generator, attn_config(cfg), dtype,
                                  device=device),
         "mlp_norm": layers.norm_init(cfg.norm, cfg.d_model, dtype,
                                      device=device),
-        "mlp": layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                               cfg.mlp_kind, dtype, device=device),
     }
-
-
-def _stack_into(dst: PyTree, src: PyTree, l: int) -> None:
-    for k, v in src.items():
-        if isinstance(v, dict):
-            _stack_into(dst[k], v, l)
-        else:
-            dst[k][l].copy_(v)
-
-
-def _empty_stacked(tree: PyTree, n: int) -> PyTree:
-    if isinstance(tree, dict):
-        return {k: _empty_stacked(v, n) for k, v in tree.items()}
-    return tree.new_empty((n,) + tuple(tree.shape))
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.moe_init(generator, cfg.d_model, cfg.d_ff,
+                                    cfg.moe, dtype, device=device)
+    else:
+        p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                   cfg.mlp_kind, dtype, device=device)
+    return p
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig,
                 device: DeviceLike = None) -> PyTree:
     """Random params in ``cfg.dtype`` on ``device``, drawn from
-    ``generator`` (which lives on that device).  Layers are drawn one after
-    another into the stacked leaves, so init never holds two copies."""
-    _dense_only(cfg)
+    ``generator`` (which lives on that device)."""
     dev = resolve(device)
     dtype = _dtype(cfg)
     embed = layers.embed_init(generator, cfg.vocab_padded, cfg.d_model,
                               dtype, device=dev)
-    stacked = None
-    for l in range(cfg.num_layers):
-        lp = init_layer(generator, cfg, dtype, device=dev)
-        if stacked is None:
-            stacked = _empty_stacked(lp, cfg.num_layers)
-        _stack_into(stacked, lp, l)
-        del lp
     params = {
         "embed": embed,
-        "layers": stacked,
+        "layers": layers.init_stacked(
+            lambda: init_layer(generator, cfg, dtype, device=dev),
+            cfg.num_layers),
         "final_norm": layers.norm_init(cfg.norm, cfg.d_model, dtype,
                                       device=dev),
     }
@@ -146,12 +116,23 @@ def _batch_positions(cfg: ArchConfig, batch: dict) -> torch.Tensor:
 # Forward (prefill and the teacher-forced reference)
 # ---------------------------------------------------------------------------
 
+def _ffn(cfg: ArchConfig, lp: PyTree, h: torch.Tensor,
+         group_mode: str = "scan") -> tuple[torch.Tensor, Any]:
+    """The layer's MLP, or its mixture of experts with the aux loss (None
+    for an MLP)."""
+    if cfg.moe is not None:
+        return moe_lib.moe_apply(lp["moe"], cfg.moe, h, group_mode=group_mode)
+    return layers.mlp(lp["mlp"], h, cfg.mlp_kind), None
+
+
 def _layer_fwd(cfg: ArchConfig, acfg: layers.AttnConfig, lp: PyTree,
-               x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+               x: torch.Tensor, positions: torch.Tensor):
     h = layers.norm_apply(cfg.norm, lp["attn_norm"], x)
     x = x + layers.attention(lp["attn"], acfg, h, positions)
     h = layers.norm_apply(cfg.norm, lp["mlp_norm"], x)
-    return x + layers.mlp(lp["mlp"], h, cfg.mlp_kind)
+    # all groups at once: the reference's training mode
+    out, aux = _ffn(cfg, lp, h, group_mode="vmap")
+    return x + out, aux
 
 
 def embed_inputs(params: PyTree, cfg: ArchConfig, batch: dict) -> torch.Tensor:
@@ -166,18 +147,21 @@ def embed_inputs(params: PyTree, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 
 def forward(params: PyTree, cfg: ArchConfig,
             batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits, aux_loss); a dense model's
-    aux loss is 0."""
-    _dense_only(cfg)
+    """Full-sequence forward.  Returns (logits, aux_loss): the sum of the
+    MoE layers' load-balancing losses, 0 for a dense model."""
     x = embed_inputs(params, cfg, batch)
     positions = _batch_positions(cfg, batch)
     acfg = attn_config(cfg)
+    auxs = []
     for l in range(cfg.num_layers):
-        x = _layer_fwd(cfg, acfg, layer_params(params["layers"], l), x,
-                       positions)
+        lp = layers.layer_params(params["layers"], l)
+        x, aux = _layer_fwd(cfg, acfg, lp, x, positions)
+        auxs.append(aux)
     x = layers.norm_apply(cfg.norm, params["final_norm"], x)
     logits = unembed(params, cfg, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.moe is None:
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, torch.sum(torch.stack(auxs))
 
 
 def unembed(params: PyTree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -201,7 +185,6 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
     """An empty cache on ``device``.  ``length`` (tokens seen so far) is a
     host int, so a decode step needs no read from the card to find its
     slot."""
-    _dense_only(cfg)
     dev = resolve(device)
     C = cache_capacity(cfg, max_len)
     shape = (cfg.num_layers, batch_size, C, cfg.n_kv, cfg.resolved_head_dim)
@@ -218,7 +201,6 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
 def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
             max_len: int) -> tuple[torch.Tensor, PyTree]:
     """Run the full prompt, build the cache, return last-token logits."""
-    _dense_only(cfg)
     x = embed_inputs(params, cfg, batch)
     B, S = batch["tokens"].shape
     positions = _batch_positions(cfg, batch)
@@ -245,13 +227,13 @@ def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
         slot_pos[bidx, slots] = pos_last.to(torch.int32)
 
     for l in range(cfg.num_layers):
-        lp = layer_params(params["layers"], l)
+        lp = layers.layer_params(params["layers"], l)
         h = layers.norm_apply(cfg.norm, lp["attn_norm"], x)
         k, v = layers.project_kv(lp["attn"], acfg, h, positions)
         x = x + layers.attention(lp["attn"], acfg, h, positions,
                                  kv_override=(k, v), kv_positions=abs_pos)
         h2 = layers.norm_apply(cfg.norm, lp["mlp_norm"], x)
-        x = x + layers.mlp(lp["mlp"], h2, cfg.mlp_kind)
+        x = x + _ffn(cfg, lp, h2)[0]
         if C >= S:
             cache_k[l, :, :S] = k
             cache_v[l, :, :S] = v
@@ -275,7 +257,6 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
     without a copy of the cache), so the cache passed in is the one
     returned.
     """
-    _dense_only(cfg)
     B = token.shape[0]
     length = int(cache["length"])
     positions = make_positions(cfg, B, 1, offset=length, device=token.device)
@@ -290,7 +271,7 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
     kv_positions = slot_pos.clamp(min=0)
 
     for l in range(cfg.num_layers):
-        lp = layer_params(params["layers"], l)
+        lp = layers.layer_params(params["layers"], l)
         ck, cv = cache["k"][l], cache["v"][l]
         h = layers.norm_apply(cfg.norm, lp["attn_norm"], x)
         k, v = layers.project_kv(lp["attn"], acfg, h, positions)  # (B,1,kv,hd)
@@ -301,7 +282,7 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
                                  kv_positions=kv_positions,
                                  kv_valid=kv_valid)
         h2 = layers.norm_apply(cfg.norm, lp["mlp_norm"], x)
-        x = x + layers.mlp(lp["mlp"], h2, cfg.mlp_kind)
+        x = x + _ffn(cfg, lp, h2)[0]
 
     x = layers.norm_apply(cfg.norm, params["final_norm"], x)
     logits = unembed(params, cfg, x)

@@ -1,6 +1,8 @@
-"""The port's dense LM serving path (repro_torch.models, serve.engine,
-launch, configs) against the JAX package's, on the same NumPy inputs and
-parameters.
+"""The port's LM serving path (repro_torch.models, serve.engine, launch,
+configs) against the JAX package's, on the same NumPy inputs and
+parameters: the dense transformer family here, the helpers the per-family
+files (``test_torch_{ssm,hybrid,encdec,moe}.py``) share, and the registry
+over every architecture.
 
 Parameters are drawn with NumPy from a seed into the reference's tree
 (``jax.eval_shape`` of ``repro.models.registry.init_params``) and cross
@@ -24,16 +26,20 @@ import pytest
 import torch
 
 from repro.configs.base import ArchConfig as JArchConfig
+from repro.configs.base import MoEConfig as JMoEConfig
+from repro.configs.base import SSMConfig as JSSMConfig
 from repro.launch import train as jlaunch_train
 from repro.models import layers as jlayers
 from repro.models import registry as jregistry
 from repro.serve import engine as jengine
 from repro_torch import convert
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
-from repro_torch.models import layers, registry, transformer
+from repro_torch.models import (encdec, hybrid, layers, registry, ssm,
+                                transformer)
 from repro_torch.serve import engine
+from test_archs import REDUCED as _ARCH_REDUCED
 
 torch.set_num_threads(2)
 
@@ -64,6 +70,11 @@ REDUCED = {
 }
 DENSE = list(REDUCED)
 WINDOWED = dict(REDUCED["llama-r"], name="window-r", window=6)
+#: Every reduced config of tests/test_archs.py, by name, as a keyword set
+#: (nested MoE and SSM configs as dicts): mixtral-r, arctic-r, qwen2vl-r,
+#: seamless-r, mamba2-r and zamba2-r beside the dense ones above.
+ARCH_KW = {c.name: dataclasses.asdict(c) for c in _ARCH_REDUCED.values()}
+ARCH_OF = {arch_id: c.name for arch_id, c in _ARCH_REDUCED.items()}
 
 B, S = 2, 8
 
@@ -75,11 +86,12 @@ _jprefill = jax.jit(jregistry.prefill, static_argnums=(1, 3))
 _jdecode = jax.jit(jregistry.decode_step, static_argnums=1)
 
 
-def _jserve(params, cfg, tokens, new_tokens, max_len):
-    """The reference's prefill, then a decode step for each column of
-    ``new_tokens``: every (logits, cache) along the way.  The decode steps
-    share one compile."""
-    outs = [_jprefill(params, cfg, {"tokens": tokens}, max_len)]
+def _jserve(params, cfg, tokens, new_tokens, max_len, extra=None):
+    """The reference's prefill (of ``tokens`` and the batch's ``extra``
+    entries), then a decode step for each column of ``new_tokens``: every
+    (logits, cache) along the way.  The decode steps share one compile."""
+    outs = [_jprefill(params, cfg, dict(extra or {}, tokens=tokens),
+                      max_len)]
     for t in range(new_tokens.shape[1]):
         outs.append(_jdecode(params, cfg, new_tokens[:, t:t + 1],
                              outs[-1][1]))
@@ -87,15 +99,66 @@ def _jserve(params, cfg, tokens, new_tokens, max_len):
 
 
 def _cfgs(kw):
-    return JArchConfig(**kw), ArchConfig(**kw)
+    """Both packages' ArchConfig from one keyword set."""
+    def build(arch, moe, ssm_):
+        kw2 = dict(kw)
+        if kw2.get("moe") is not None:
+            kw2["moe"] = moe(**kw2["moe"])
+        if kw2.get("ssm") is not None:
+            kw2["ssm"] = ssm_(**kw2["ssm"])
+        return arch(**kw2)
+
+    return (build(JArchConfig, JMoEConfig, JSSMConfig),
+            build(ArchConfig, MoEConfig, SSMConfig))
+
+
+def _tserve(params, cfg, tokens, new_tokens, max_len, extra=None):
+    """``_jserve`` in the port: the cache is copied before each decode
+    step, which advances it in place."""
+    outs = [registry.prefill(params, cfg, dict(extra or {}, tokens=tokens),
+                             max_len)]
+    for t in range(new_tokens.shape[1]):
+        cache = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                 for k, v in outs[-1][1].items()}
+        outs.append(registry.decode_step(params, cfg,
+                                         new_tokens[:, t:t + 1], cache))
+    return outs
+
+
+def _close_caches(tc, jc, tol=FP32):
+    """Every leaf of a port cache against the reference's: float leaves
+    to ``tol``, integer leaves exactly, ``length`` as a host int."""
+    assert set(tc) == set(jc)
+    for leaf, want in jc.items():
+        got = tc[leaf]
+        if leaf == "length":
+            assert got == int(want)
+        elif jnp.issubdtype(want.dtype, jnp.integer):
+            np.testing.assert_array_equal(_np(got), _np(want))
+        else:
+            _close(got, want, tol)
+
+
+def _tree_signature(tree, prefix=""):
+    """{path: (shape, dtype name)} of a tree of torch or JAX arrays."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tree_signature(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, int):
+        return {prefix: ((), "int32")}
+    return {prefix: (tuple(tree.shape), str(tree.dtype).split(".")[-1])}
 
 
 _PARAMS = {}
 
 
 def _np_params(jcfg, seed=0):
-    """The reference's param tree, every leaf drawn with NumPy: norm
-    scales near 1, biases and weights at init's scales."""
+    """The reference's param tree, every leaf drawn with NumPy (norm
+    scales near 1, biases and weights at init's scales) and held in the
+    reference's own dtype for it (a bf16 Mamba2 keeps float32 ``A_log``,
+    ``dt_bias`` and ``D``)."""
     shapes = jax.eval_shape(
         lambda: jregistry.init_params(jax.random.key(0), jcfg))
     rng = np.random.default_rng(seed)
@@ -104,22 +167,22 @@ def _np_params(jcfg, seed=0):
         name = jax.tree_util.keystr(path)
         x = rng.standard_normal(sds.shape).astype(np.float32)
         if "scale" in name:
-            return 1.0 + 0.1 * x
-        if "embedding" in name:
-            return 0.02 * x
-        return x / np.sqrt(sds.shape[-2])
+            x = 1.0 + 0.1 * x
+        elif "embedding" in name:
+            x = 0.02 * x
+        else:
+            x = x / np.sqrt(sds.shape[-2])
+        return jnp.asarray(x, sds.dtype)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 def _params(kw):
     """(jax params, torch params on the CPU) from one NumPy draw."""
-    key = tuple(sorted(kw.items()))
+    key = repr(sorted(kw.items()))
     if key not in _PARAMS:
         jcfg, tcfg = _cfgs(kw)
-        np_tree = _np_params(jcfg)
-        jdtype = jnp.bfloat16 if jcfg.dtype == "bfloat16" else jnp.float32
-        jp = jax.tree.map(lambda a: jnp.asarray(a, jdtype), np_tree)
+        jp = _np_params(jcfg)
         tp = convert.lm_params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
                                           device="cpu")
         _PARAMS[key] = (jp, tp)
@@ -388,10 +451,38 @@ class TestAttention:
 # transformer.py through the registry, per reduced config
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", DENSE + ["window-r"])
+def _extras(name, n, s, seed=0):
+    """The batch entries beside the tokens, as NumPy: qwen2vl-r's two
+    patch embeddings and explicit 3-row M-RoPE positions (the patches'
+    rows differ; from position 2 on, text, all three rows are the
+    position, as decode's own positions are)."""
+    if name != "qwen2vl-r":
+        return {}
+    rng = np.random.default_rng(seed)
+    pos = np.tile(np.arange(s, dtype=np.int32), (3, n, 1))
+    pos[1, :, :2] = (0, 0)
+    pos[2, :, :2] = (1, 0)
+    return {"patch_embeds": _rand(rng, n, 2, ARCH_KW[name]["d_model"]),
+            "positions": pos}
+
+
+def _head(extra, t):
+    """A batch's extras cut to its first ``t`` tokens."""
+    return {k: (v[..., :t] if k == "positions" else v)
+            for k, v in extra.items()}
+
+
+def _to(mod, extra):
+    conv = jnp.asarray if mod == "jax" else torch.from_numpy
+    return {k: conv(v) for k, v in extra.items()}
+
+
+@pytest.mark.parametrize("name", DENSE + ["window-r", "qwen2vl-r"])
 class TestTransformer:
     @staticmethod
     def _kw(name):
+        if name == "qwen2vl-r":
+            return ARCH_KW[name]
         return WINDOWED if name == "window-r" else REDUCED[name]
 
     def test_forward(self, name):
@@ -399,8 +490,11 @@ class TestTransformer:
         jcfg, tcfg = _cfgs(kw)
         jp, tp = _params(kw)
         toks = _tokens(B, S)
-        jl, _ = _jforward(jp, jcfg, {"tokens": jnp.asarray(toks)})
-        tl, aux = registry.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+        extra = _extras(name, B, S)
+        jl, _ = _jforward(jp, jcfg, dict(_to("jax", extra),
+                                         tokens=jnp.asarray(toks)))
+        tl, aux = registry.forward(
+            tp, tcfg, dict(_to("torch", extra), tokens=torch.from_numpy(toks)))
         assert tl.shape == (B, S, tcfg.vocab_padded)
         assert float(aux) == 0.0
         _close(tl, jl)
@@ -417,22 +511,14 @@ class TestTransformer:
         jp, tp = _params(kw)
         toks = _tokens(B, S, seed=1)
         new = _tokens(B, 2, seed=2)
-        ref = _jserve(jp, jcfg, jnp.asarray(toks), jnp.asarray(new), max_len)
-        got = [registry.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)},
-                                max_len)]
-        for step in range(new.shape[1]):
-            # decode_step advances the cache in place: keep a copy of each
-            cache = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
-                     for k, v in got[-1][1].items()}
-            got.append(registry.decode_step(
-                tp, tcfg, torch.from_numpy(new[:, step:step + 1]), cache))
+        extra = _extras(name, B, S, seed=1)
+        ref = _jserve(jp, jcfg, jnp.asarray(toks), jnp.asarray(new), max_len,
+                      _to("jax", extra))
+        got = _tserve(tp, tcfg, torch.from_numpy(toks), torch.from_numpy(new),
+                      max_len, _to("torch", extra))
         for (tl, tc), (jl, jc) in zip(got, ref):
             _close(tl, jl)
-            for leaf in ("k", "v"):
-                _close(tc[leaf], jc[leaf])
-            np.testing.assert_array_equal(_np(tc["slot_pos"]),
-                                          _np(jc["slot_pos"]))
-            assert tc["length"] == int(jc["length"])
+            _close_caches(tc, jc)
         assert got[0][1]["length"] == S
 
     def test_prefill_decode_matches_forward(self, name):
@@ -440,14 +526,16 @@ class TestTransformer:
         t, within the port itself (as tests/test_archs.py checks the
         reference)."""
         kw = self._kw(name)
-        tcfg = ArchConfig(**kw)
+        tcfg = _cfgs(kw)[1]
         _, tp = _params(kw)
         toks = torch.from_numpy(_tokens(B, S, seed=3))
+        extra = _to("torch", _extras(name, B, S, seed=3))
         with torch.inference_mode():
-            ref, _ = registry.forward(tp, tcfg, {"tokens": toks})
+            ref, _ = registry.forward(tp, tcfg, dict(extra, tokens=toks))
             t = S - 1
-            pre, cache = registry.prefill(tp, tcfg, {"tokens": toks[:, :t]},
-                                          max_len=S)
+            pre, cache = registry.prefill(
+                tp, tcfg, dict(_head(extra, t), tokens=toks[:, :t]),
+                max_len=S)
             _close(pre[:, 0], ref[:, t - 1])
             dec, _ = registry.decode_step(tp, tcfg, toks[:, t:t + 1], cache)
             _close(dec[:, 0], ref[:, t])
@@ -559,6 +647,28 @@ def test_launch_serve_main_on_the_cpu(capsys):
     assert lines == [f"req {i}: 3 tokens" for i in range(5)] + ["done"]
 
 
+@pytest.mark.parametrize("arch_id,layers_", [
+    ("mamba2_780m", 1), ("zamba2_2_7b", 6), ("mixtral_8x7b", 1),
+    ("arctic_480b", 1)])
+def test_launch_serve_every_servable_family(arch_id, layers_, capsys):
+    """The ssm, hybrid (whole groups of 6) and moe families serve through
+    the launcher at small_config sizes on the CPU."""
+    launch_serve.main(["--device", "cpu", "--arch", arch_id, "--d-model",
+                       "64", "--layers", str(layers_), "--vocab", "256",
+                       "--requests", "2", "--max-new-tokens", "3"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == [f"req {i}: 3 tokens" for i in range(2)] + ["done"]
+
+
+def test_launch_serve_refuses_encdec_for_want_of_frames():
+    """As the reference's launcher: its ServeLoop passes tokens only."""
+    with pytest.raises(KeyError, match="frames"):
+        launch_serve.main(["--device", "cpu", "--arch",
+                           "seamless_m4t_large_v2", "--d-model", "64",
+                           "--layers", "1", "--vocab", "256", "--requests",
+                           "1", "--max-new-tokens", "2"])
+
+
 # ---------------------------------------------------------------------------
 # configs, registry, convert
 # ---------------------------------------------------------------------------
@@ -588,25 +698,27 @@ def test_shapes_equal():
                                              jbase.SHAPES[name]))
 
 
-@pytest.mark.parametrize("arch_id", ["mixtral_8x7b", "mamba2_780m",
-                                     "zamba2_2_7b", "seamless_m4t_large_v2"])
-def test_unported_families_raise(arch_id):
-    cfg = registry.load_arch(arch_id)
-    assert cfg.family in ("moe", "ssm", "hybrid", "encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
-        registry.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
-        registry.init_cache(cfg, 1, 8, device="cpu")
+_FAMILY_MODULE = {"transformer": transformer, "moe": transformer,
+                  "ssm": ssm, "hybrid": hybrid, "encdec": encdec}
 
 
-def test_moe_layer_never_falls_back_to_a_dense_mlp():
-    cfg = dataclasses.replace(registry.load_arch("mixtral_8x7b"),
-                              family="transformer")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
-        transformer.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
-        transformer.forward({}, cfg, {"tokens": torch.zeros((1, 1),
-                                                            dtype=torch.int32)})
+@pytest.mark.parametrize("arch_id", registry.ARCH_IDS)
+def test_every_arch_resolves_to_its_family(arch_id):
+    """Every architecture resolves to its family's module (the reference's
+    family by name), and at its reduced config of tests/test_archs.py the
+    port's empty cache is the reference's tree: keys, shapes and dtypes,
+    in fp32 and bf16 (``length`` is a host int here)."""
+    full = registry.load_arch(arch_id)
+    mod = registry.family_module(full)
+    assert mod is _FAMILY_MODULE[full.family]
+    jmod = jregistry.family_module(jregistry.load_arch(arch_id))
+    assert mod.__name__.rsplit(".", 1)[1] == jmod.__name__.rsplit(".", 1)[1]
+    for dtype in ("float32", "bfloat16"):
+        jcfg, tcfg = _cfgs(dict(ARCH_KW[ARCH_OF[arch_id]], dtype=dtype))
+        jc = jax.eval_shape(lambda: jregistry.init_cache(jcfg, 2, 8))
+        tc = registry.init_cache(tcfg, 2, 8, device="cpu")
+        assert _tree_signature(tc) == _tree_signature(jc)
+        assert tc["length"] == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
