@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's DSE cell, inference and training, on one
-NVIDIA GPU.
+"""Run the PyTorch/CUDA port's DSE cell, inference and training, and its
+LM serving and training paths, on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -134,6 +134,30 @@ script then exits non-zero and never prints its result line):
    ``LM_FP32_TOL``, equal tokens.  Then the SNN codes that the port adds
    to the rate code (constant-current, time-to-first-spike, burst) and
    ``lif_init_state`` on the card against the CPU, bit for bit.
+9. The LM training path (it runs after phase 8, before the timing), with
+   the seven kernels' counters set to 0 before it and read after: all must
+   read 0.  tinyllama-1.1b (22 layers, d_model 2048, bf16) takes 6 and
+   mamba2-780m (48 blocks, d_model 1536, chunk 256, bf16 with float32
+   ``A_log``, ``dt_bias`` and ``D``) 4 AdamW steps at full width through
+   ``launch.train.run_training`` (``main --full``'s defaults: batch 8 x
+   256, lr 3e-4, seed 0, remat on, no checkpoint directory), each freed
+   before the next: every loss and grad norm finite, every leaf moved by
+   the first step but the bf16 norm scales near 1 (half their ulp exceeds
+   the update, in the JAX package as here), every leaf's dtype kept; the
+   median step of steps 2-5, tokens a second, peak memory, the step's
+   least time (``lm_train_bound``) and one profiled step (busy share,
+   kernels, the kernels that took the most time).  The reduced fp32
+   configs (the 4:1 GQA transformer, also under Adafactor; mixtral-r in
+   two microbatches; mamba2-r, zamba2-r; seamless-r over 64 frames drawn
+   on the card from seed 0) take two ``build_train_step`` steps on the
+   card and on the CPU from the same converted weights and batch, the
+   second of each from the CPU's first-step state, within
+   ``LM_TRAIN_FP32_TOL``; the dense one also with remat off against on,
+   on the card.  Then the 100M example's training
+   (``examples/torch_train_lm_100m.py``: llama3.2-3b's wiring scaled to
+   14 layers, d_model 640, vocab 16384, fp32; 300 steps of 2 x 256, lr
+   1e-3, data vocab 512, no checkpoints): its last ten losses' mean must
+   be below its first ten's by more than 0.5.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
@@ -312,6 +336,27 @@ LM_BF16_FP32_TOL = 0.05
 # The reduced fp32 configs, card against CPU (TF32 off): the same ops,
 # summed in other orders.
 LM_FP32_TOL = dict(rtol=1e-5, atol=5e-5)
+# Phase 9, the LM training path: full-width configs trained through
+# launch.train.run_training (AdamW, remat, batch x sequence, steps); the
+# reduced fp32 configs trained on the card and on the CPU (the dense one
+# also under Adafactor and with remat off, mixtral-r in two microbatches,
+# seamless-r over LM_TRAIN_FRAMES frames); the 100M example's run.
+LM_TRAIN = {"tinyllama_1_1b": 6, "mamba2_780m": 4}
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 256
+LM_TRAIN_FRAMES = 64
+LM_100M = dict(d_model=640, layers=14, vocab=16384, steps=300, batch=2,
+               seq=256, lr=1e-3, data_vocab=512)
+# The reduced fp32 configs' two train steps, card against CPU, the second
+# of each from the CPU's first-step state: the loss and metrics to
+# ``rtol``; each updated leaf within ``param`` of its largest |value|,
+# except where AdamW divides by a gradient near zero (a clipped gradient of
+# 1e-9 against an eps of 1e-8 makes the update follow the gradient's last
+# digits): there a share ``near_zero`` of a leaf may move by up to two
+# learning rates (tests/test_torch_lm_train.py, where the CPU against the
+# JAX package measured 1.2e-4 of a leaf).  Remat on and off, both on the
+# card, within the same.  Phase 8's logits agree card against CPU to
+# about 7e-6 (PERF.md §6).
+LM_TRAIN_FP32_TOL = dict(rtol=1e-5, param=1e-5, near_zero=1e-3)
 # Published peaks of one H100 SXM at its 700 W limit (dense, no sparsity).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -381,11 +426,12 @@ def median_ms(torch, fn, reps=25, warmup=3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
-def step_profile(torch, step) -> dict:
+def step_profile(torch, step, top: int = 0) -> dict:
     """One call of ``step`` (warmed up by the caller) between two
     synchronises, then one more under the profiler: the call's wall time,
     the device's busy time (its CUDA kernels' device time summed), the
-    busy share of the wall and the kernels launched."""
+    busy share of the wall and the kernels launched; with ``top``, also the
+    ``top`` operators whose kernels took the most device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -399,9 +445,18 @@ def step_profile(torch, step) -> dict:
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time_total for e in kern) / 1e3
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-            "busy_share": busy / (wall * 1e3) if kern else None,
-            "kernels": len(kern)}
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+           "busy_share": busy / (wall * 1e3) if kern else None,
+           "kernels": len(kern)}
+    if top:
+        ops_ = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and e.self_device_time_total > 0]
+        out["top"] = [{"op": e.key, "ms": e.self_device_time_total / 1e3,
+                       "calls": e.count}
+                      for e in sorted(ops_, key=lambda e:
+                                      -e.self_device_time_total)[:top]]
+    return out
 
 
 def device_ms(torch, fn, calls=20, tries=3, flush=None):
@@ -1148,6 +1203,330 @@ def lm_phase(torch, dev) -> dict:
         raise AssertionError(f"the LM serving path launched SNN kernels: "
                              f"{out['launches']}")
     log(f"  the seven kernels' launches on the LM path: {out['launches']}")
+    return out
+
+
+def lm_train_bound(cfg, params, tokens: int, batch: int) -> dict:
+    """The least time one AdamW step with remat could take on the card:
+    its products, then its optimizer, which cannot start before the last
+    gradient (clipping needs the norm of all of them), so the two add.
+    Products: 8 operations a non-embedding parameter a token (forward 2,
+    backward 4, remat's recompute 2), the unembedding's 6 (it is not
+    recomputed), the attention scores' 16 a (query, key) pair a head
+    dimension (forward 4: QK and PV), and a Mamba2 block's chunked SSD
+    products 4 times over; at the bf16 or fp32 peak of ``cfg.dtype``.
+    Optimizer: each parameter read and written, its gradient read, and two
+    float32 moments read and written, over the memory rate.  ``params``
+    may live on the meta device."""
+    from repro_torch.models import ssm
+    from repro_torch.tree import leaves
+
+    peak = PEAK_BF16_FLOPS if cfg.dtype == "bfloat16" else PEAK_FP32_FLOPS
+    n_all = sum(t.numel() for t in leaves(params))
+    emb = params["embed"]["embedding"]
+    head = emb if cfg.tie_embeddings else params["lm_head"]["w"]
+    n_body = n_all - emb.numel() - (0 if cfg.tie_embeddings
+                                    else head.numel())
+    S = tokens // batch
+    flops = 8 * n_body * tokens + 6 * head.numel() * tokens
+    if cfg.family in ("transformer", "moe"):
+        flops += 16 * cfg.num_layers * batch * S * S * cfg.n_heads \
+            * cfg.resolved_head_dim
+    if cfg.family == "ssm":
+        d = ssm.dims(cfg)
+        Q, H, N, P = min(d["Q"], S), d["n_heads"], d["N"], d["P"]
+        flops += 4 * cfg.num_layers * 2 * tokens * (Q * N + Q * H * P
+                                                    + 2 * H * N * P)
+    opt_bytes = sum(t.numel() * (3 * t.element_size() + 16)
+                    for t in leaves(params))
+    t_ops, t_bytes = flops / peak, opt_bytes / PEAK_BYTES_PER_S
+    return {"flops": flops, "optimizer_bytes": opt_bytes,
+            "products_ms": t_ops * 1e3, "optimizer_ms": t_bytes * 1e3,
+            "bound_ms": (t_ops + t_bytes) * 1e3}
+
+
+def lm_train_phase(torch, dev) -> dict:
+    """Phase 9: the LM training path (see the module docstring).  The
+    seven kernels' counters are set to 0 before it and read after; the
+    path launches none of them."""
+    from repro_torch import convert
+    from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry
+    from repro_torch.train import steps
+    from repro_torch.tree import leaves, tree_map
+
+    cpu = torch.device("cpu")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def fresh():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def peak_gib(base):
+        return ((torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                if dev.type == "cuda" else None)
+
+    class Recorder:
+        """Wraps ``steps.build_train_step`` so that every step
+        ``run_training`` takes is timed (ending in a synchronise), its loss
+        and grad norm kept, and after its first step each parameter leaf
+        compared with the one before."""
+
+        def __init__(self):
+            self.ms, self.loss, self.grad_norm = [], [], []
+            self.unchanged = None
+            self.orig = steps.build_train_step
+
+        def __enter__(self):
+            def build(cfg, settings, mesh=None):
+                fn = self.orig(cfg, settings, mesh)
+
+                def step(params, opt_state, batch):
+                    sync()
+                    t0 = time.perf_counter()
+                    new = fn(params, opt_state, batch)
+                    sync()
+                    self.ms.append((time.perf_counter() - t0) * 1e3)
+                    self.loss.append(float(new[2]["loss"]))
+                    self.grad_norm.append(float(new[2]["grad_norm"]))
+                    if self.unchanged is None:
+                        self.unchanged = [
+                            "/".join(path) for (path, a), (_, b) in
+                            zip(tree_paths(params), tree_paths(new[0]))
+                            if torch.equal(a, b)]
+                    return new
+                return step
+
+            steps.build_train_step = build
+            return self
+
+        def __exit__(self, *exc):
+            steps.build_train_step = self.orig
+
+    out = {"full_width": {}}
+    ops.reset_launch_counts()
+    for arch_id, n_steps in LM_TRAIN.items():
+        cfg = registry.load_arch(arch_id)
+        base = fresh()
+        tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+        with Recorder() as rec:
+            t0 = time.perf_counter()
+            res = launch_train.run_training(
+                cfg, steps_n=n_steps, global_batch=LM_TRAIN_BATCH,
+                seq_len=LM_TRAIN_SEQ, lr=3e-4, seed=SEED, log_every=1,
+                device=dev)
+            sync()
+            wall = time.perf_counter() - t0
+        params, opt = res["state"]["params"], res["state"]["opt"]
+        if not all(math.isfinite(x) for x in rec.loss + rec.grad_norm) \
+                or rec.loss != res["losses"]:
+            raise AssertionError(f"{cfg.name}: losses {rec.loss}, grad "
+                                 f"norms {rec.grad_norm}")
+        # a bf16 leaf near 1 (a norm's scale) cannot take a step of about
+        # lr: half its ulp is 0.002-0.004, so the update rounds away, in
+        # the reference's apply_updates as here; every other leaf moves
+        if any(not p.endswith("scale") or cfg.dtype != "bfloat16"
+               for p in rec.unchanged):
+            raise AssertionError(f"{cfg.name}: leaves unchanged by the "
+                                 f"first step: {rec.unchanged}")
+        like = registry.init_params(torch.Generator(), cfg, device="meta")
+        if [t.dtype for t in leaves(params)] != [t.dtype
+                                                 for t in leaves(like)]:
+            raise AssertionError(f"{cfg.name}: a leaf changed its dtype")
+        step_ms = statistics.median(rec.ms[1:5])
+        row = {"steps": n_steps, "batch": LM_TRAIN_BATCH,
+               "seq": LM_TRAIN_SEQ, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "dtype": cfg.dtype,
+               "params": sum(t.numel() for t in leaves(params)),
+               "float32_leaves": sum(t.dtype == torch.float32
+                                     for t in leaves(params)),
+               "state_gib": sum(t.numel() * t.element_size() for t in
+                                leaves((params, opt))) / 2 ** 30,
+               "losses": rec.loss, "grad_norms": rec.grad_norm,
+               "unchanged_by_step1": rec.unchanged,
+               "step_ms": rec.ms, "step_ms_median": step_ms,
+               "tokens_per_s": tokens / step_ms * 1e3, "run_s": wall,
+               "peak_gib": peak_gib(base),
+               **lm_train_bound(cfg, like, tokens, LM_TRAIN_BATCH)}
+        if dev.type == "cuda":
+            batch = pipeline.to_device(pipeline.synthetic_lm_batch(
+                pipeline.DataConfig(cfg.vocab, LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                                    SEED), n_steps), dev)
+            fn = steps.build_train_step(cfg, steps.TrainSettings(
+                learning_rate=3e-4, remat=True, z_loss=1e-4))
+            row["profiled_step"] = step_profile(
+                torch, lambda: fn(params, opt, batch), top=12)
+        del params, opt, res
+        out["full_width"][arch_id] = row
+        log(f"  {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{row['params'] / 1e9:.3f} B params, {cfg.dtype}, AdamW, remat,"
+            f" {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}): {n_steps} steps, losses "
+            f"{[round(x, 4) for x in rec.loss]}, grad norms "
+            f"{[round(x, 3) for x in rec.grad_norm]}; step "
+            f"{step_ms:.2f} ms (median of steps 2-5; bound "
+            f"{row['bound_ms']:.2f} ms = products {row['products_ms']:.2f} + "
+            f"optimizer {row['optimizer_ms']:.2f}), "
+            f"{row['tokens_per_s']:.0f} tokens/s, peak "
+            f"{row['peak_gib'] or float('nan'):.2f} GiB (state "
+            f"{row['state_gib']:.2f} GiB); unchanged by step 1 (bf16 scales "
+            f"near 1, whose half ulp exceeds the update): {rec.unchanged}")
+        if "profiled_step" in row:
+            st = row["profiled_step"]
+            log(f"    one step {st['wall_ms']:.1f} ms, device busy "
+                f"{st['device_busy_ms']:.1f} ms"
+                + (f" ({st['busy_share']:.0%})" if st["kernels"] else
+                   " (the profiler recorded no device time: not measured)")
+                + f", {st['kernels']} kernels; top: "
+                + "; ".join(f"{t['op']} {t['ms']:.2f} ms x{t['calls']}"
+                            for t in st["top"][:8]))
+
+    # the reduced fp32 configs: two steps on the card and on the CPU from
+    # the same converted weights and batch
+    tol = LM_TRAIN_FP32_TOL
+
+    def hold(name, what, got, want, lr):
+        """Each leaf of ``got`` against ``want``: at most a share
+        tol["near_zero"] of its elements (at least one) beyond
+        tol["param"] of its max, none beyond two learning rates.  Returns
+        the worst max |difference| / max |value|."""
+        worst = 0.0
+        for a, b in zip(leaves(got), leaves(want)):
+            a, b = a.detach().cpu().float(), b.detach().cpu().float()
+            m = float(b.abs().max()) or 1.0
+            d = (a - b).abs()
+            far = int((d > tol["param"] * m).sum())
+            if far > math.ceil(tol["near_zero"] * d.numel()) or \
+                    float(d.max()) > 2 * lr + tol["param"] * m:
+                raise AssertionError(
+                    f"{name}: {what} differ: {float(d.max()) / m:.3g} of "
+                    f"the max, {far} of {d.numel()} elements beyond "
+                    f"{tol['param']}")
+            worst = max(worst, float(d.max()) / m)
+        return worst
+
+    def hold_metrics(name, what, got, want):
+        worst = 0.0
+        for k, w in want.items():
+            g, w = float(got[k]), float(w)
+            err = abs(g - w) / max(abs(w), 1e-12)
+            if abs(g - w) > 1e-12 and err > tol["rtol"]:
+                raise AssertionError(f"{name}: {what} {k} {g} against {w}")
+            worst = max(worst, err if abs(g - w) > 1e-12 else 0.0)
+        return worst
+
+    cases = [("dense", LM_REDUCED, {}),
+             ("dense-adafactor", LM_REDUCED, {"optimizer": "adafactor"}),
+             ("mixtral-r-microbatches", LM_REDUCED_FAMILIES["mixtral-r"],
+              {"microbatches": 2}),
+             ("mamba2-r", LM_REDUCED_FAMILIES["mamba2-r"], {}),
+             ("zamba2-r", LM_REDUCED_FAMILIES["zamba2-r"], {}),
+             ("seamless-r", LM_REDUCED_FAMILIES["seamless-r"], {})]
+    out["reduced_fp32"] = {}
+    for name, kw, over in cases:
+        kw = dict(kw)
+        if "moe" in kw:
+            kw["moe"] = MoEConfig(**kw["moe"])
+        if "ssm" in kw:
+            kw["ssm"] = SSMConfig(**kw["ssm"])
+        cfg = ArchConfig(**kw)
+        tree = convert.lm_params_to_numpy(registry.init_params(
+            torch.Generator().manual_seed(SEED), cfg, device="cpu"))
+        host = pipeline.synthetic_lm_batch(pipeline.DataConfig(
+            cfg.vocab, 32, LM_BATCH, SEED), 0)
+        batch = {d: pipeline.to_device(host, d) for d in (dev, cpu)}
+        if cfg.family == "encdec":
+            frames = torch.randn(
+                (LM_BATCH, LM_TRAIN_FRAMES, cfg.d_model), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(SEED))
+            for d in (dev, cpu):
+                batch[d]["frames"] = frames.to(d)
+        settings = steps.TrainSettings(**over)
+        tx = steps.make_optimizer(settings)
+        lr = settings.learning_rate
+        runs = {}
+        for d in (cpu, dev):
+            step = steps.build_train_step(cfg, settings)
+            p0 = convert.lm_params_from_numpy(tree, cfg, device=d)
+            first = step(p0, tx.init(p0), batch[d])
+            if d == cpu:
+                start = first
+            # the second step of each from the CPU's first-step state
+            moved = tree_map(lambda t: t.to(d), start[:2])
+            runs[d.type] = (first, step(moved[0], moved[1], batch[d]))
+        row = {"settings": over}
+        for i in range(2):
+            card, host_ = runs[dev.type][i], runs["cpu"][i]
+            row[f"step{i + 1}_param_rel"] = hold(
+                name, f"step {i + 1}'s params", card[0], host_[0], lr)
+            row[f"step{i + 1}_metric_rel"] = hold_metrics(
+                name, f"step {i + 1}'s", card[2], host_[2])
+        if name == "dense":
+            # remat off against on, both on the card
+            off = steps.TrainSettings(remat=False)
+            p0 = convert.lm_params_from_numpy(tree, cfg, device=dev)
+            plain = steps.build_train_step(cfg, off)(p0, tx.init(p0),
+                                                     batch[dev])
+            row["remat_off_param_rel"] = hold(
+                name, "remat off against on: params", plain[0],
+                runs[dev.type][0][0], lr)
+            row["remat_off_metric_rel"] = hold_metrics(
+                name, "remat off against on:", plain[2],
+                runs[dev.type][0][2])
+        out["reduced_fp32"][name] = row
+        log(f"  {cfg.name} fp32 {over or ''}: two train steps, card against "
+            f"CPU: params {row['step1_param_rel']:.3g} / "
+            f"{row['step2_param_rel']:.3g} of the max, metrics "
+            f"{row['step1_metric_rel']:.3g} / {row['step2_metric_rel']:.3g}"
+            + (f"; remat off against on {row['remat_off_param_rel']:.3g} / "
+               f"{row['remat_off_metric_rel']:.3g}"
+               if "remat_off_param_rel" in row else ""))
+
+    # the 100M example's training (examples/torch_train_lm_100m.py)
+    c = LM_100M
+    cfg = launch_train.small_config(registry.load_arch("llama3_2_3b"),
+                                    c["d_model"], c["layers"], c["vocab"])
+    base = fresh()
+    with Recorder() as rec:
+        t0 = time.perf_counter()
+        res = launch_train.run_training(
+            cfg, steps_n=c["steps"], global_batch=c["batch"],
+            seq_len=c["seq"], lr=c["lr"], data_vocab=c["data_vocab"],
+            log_every=50, device=dev)
+        sync()
+        wall = time.perf_counter() - t0
+    losses = res["losses"]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    like = registry.init_params(torch.Generator(), cfg, device="meta")
+    row = {"params": sum(t.numel() for t in leaves(like)),
+           "first10": first, "last10": last, "run_s": wall,
+           "step_ms_median": statistics.median(rec.ms[1:]),
+           "peak_gib": peak_gib(base),
+           **lm_train_bound(cfg, like, c["batch"] * c["seq"], c["batch"])}
+    del res
+    if not last < first - 0.5:
+        raise AssertionError(f"the 100M run's loss went {first:.3f} -> "
+                             f"{last:.3f}, not down by 0.5")
+    out["lm_100m"] = row
+    log(f"  100M example ({row['params'] / 1e6:.1f}M params, fp32, "
+        f"{c['steps']} steps of {c['batch']} x {c['seq']}): loss "
+        f"{first:.3f} -> {last:.3f}; step {row['step_ms_median']:.2f} ms "
+        f"(median; bound {row['bound_ms']:.3f} ms), {wall:.1f} s")
+
+    out["launches"] = ops.launch_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"the LM training path launched SNN kernels: "
+                             f"{out['launches']}")
+    log(f"  the seven kernels' launches on the LM training path: "
+        f"{out['launches']}")
     return out
 
 
@@ -2439,6 +2818,12 @@ def main() -> int:
     with Phase("the LM serving path: every family at full width"):
         report["lm"] = lm_phase(torch, dev)
 
+    # ---- 9. the LM training path ----------------------------------------
+    with Phase("the LM training path: tinyllama-1.1b and mamba2-780m at "
+               "full width, the reduced configs card against CPU, the 100M "
+               "example"):
+        report["lm_train"] = lm_train_phase(torch, dev)
+
     # ---- 7. timing at the main path's shapes and traffic -----------------
     layers = dict(zip(names, zip(specs, [p for p in params if p])))
     per_layer = []
@@ -2772,6 +3157,7 @@ def main() -> int:
                 b: c[name] for b, c in train_launches.items()},
             "api_path_launches": api_launches[name],
             "lm_serving_launches": report["lm"]["launches"][name],
+            "lm_training_launches": report["lm_train"]["launches"][name],
             "max_abs_err": errs[name],
             "normal_weights_rel_err": normal.get(name),
             "ms": sum(r["ms"] for r in rows),

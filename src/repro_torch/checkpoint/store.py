@@ -34,6 +34,8 @@ import msgpack
 import numpy as np
 import torch
 
+from repro_torch.tree import leaves, unflatten
+
 try:
     import zstandard
 except ImportError:          # no zstd bindings: zlib fallback
@@ -103,38 +105,26 @@ def _reader(f, codec: str):
     raise ValueError(f"unknown checkpoint codec {codec!r}")
 
 
-def leaves(tree: Tree) -> list:
-    """The leaves of ``tree`` in ``jax.tree.leaves`` order: dict values by
-    sorted key, list and tuple items in order; ``None`` holds no leaf."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for item in tree for x in leaves(item)]
-    return [] if tree is None else [tree]
-
-
-def _unflatten(like: Tree, it) -> Tree:
-    if isinstance(like, dict):
-        filled = {k: _unflatten(like[k], it) for k in sorted(like)}
-        return {k: filled[k] for k in like}
-    if isinstance(like, (list, tuple)):
-        items = [_unflatten(item, it) for item in like]
-        # a NamedTuple (an optimizer state) takes its fields positionally
-        return (type(like)(*items) if hasattr(like, "_fields")
-                else type(like)(items))
-    return None if like is None else next(it)
-
-
 def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}")
 
 
-def _host_copy(leaf) -> np.ndarray:
-    """A leaf as a host array of its own: a tensor is detached and copied
-    off its device (copied on the CPU too), an array copied."""
+#: The manifest's name for bf16, as the JAX package writes it (NumPy has
+#: no bf16 dtype of its own, so a bf16 leaf travels as its 16-bit words).
+_BF16 = "bfloat16"
+
+
+def _host_copy(leaf) -> tuple[np.ndarray, Optional[str]]:
+    """A leaf as a host array of its own, and the dtype name the manifest
+    records if not the array's: a tensor is detached and copied off its
+    device (copied on the CPU too), an array copied; a bf16 tensor comes
+    back as its raw 16-bit words under the name ``bfloat16``."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.array(leaf)
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), _BF16
+        return t.numpy(), None
+    return np.array(leaf), None
 
 
 def save(directory: str, step: int, tree: Tree,
@@ -155,17 +145,18 @@ def save_async(directory: str, step: int, tree: Tree,
     return t
 
 
-def _write(directory: str, step: int, host: list[np.ndarray],
+def _write(directory: str, step: int,
+           host: list[tuple[np.ndarray, Optional[str]]],
            keep_last: Optional[int]) -> str:
     final = _step_dir(directory, step)
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     meta, blobs = [], []
-    for arr in host:
+    for arr, name in host:
         # NB: np.ascontiguousarray promotes 0-d -> 1-d; record shape first
         shape = list(arr.shape)
         data = np.ascontiguousarray(arr)
-        meta.append({"shape": shape, "dtype": str(data.dtype),
+        meta.append({"shape": shape, "dtype": name or str(data.dtype),
                      "nbytes": data.nbytes})
         blobs.append(data.tobytes())
     with open(os.path.join(tmp, _DATA), "wb") as f:
@@ -202,10 +193,16 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _like_leaf(arr: np.ndarray, want):
+def _like_leaf(arr: np.ndarray, want, bf16: bool):
     """A restored leaf at ``want``'s type: a tensor on its device and dtype,
-    else a NumPy array at its dtype."""
-    if isinstance(want, torch.Tensor):
+    else a NumPy array at its dtype.  ``bf16``: ``arr`` holds the 16-bit
+    words of bf16 values."""
+    if bf16:
+        t = torch.from_numpy(np.array(arr)).view(torch.bfloat16)
+        if isinstance(want, torch.Tensor):
+            return t.to(device=want.device, dtype=want.dtype)
+        arr = t.float().numpy()
+    elif isinstance(want, torch.Tensor):
         return torch.from_numpy(np.array(arr)).to(device=want.device,
                                                   dtype=want.dtype)
     return np.asarray(arr, dtype=np.asarray(want).dtype)
@@ -233,11 +230,13 @@ def restore(directory: str, like: Tree, step: Optional[int] = None) -> Tree:
         with _reader(f, codec) as r:
             for m, w in zip(meta, want):
                 buf = r.read(m["nbytes"])
-                arr = np.frombuffer(buf, dtype=np.dtype(m["dtype"])
-                                    ).reshape(m["shape"])
+                bf16 = m["dtype"] == _BF16
+                arr = np.frombuffer(
+                    buf, dtype=np.int16 if bf16 else np.dtype(m["dtype"])
+                ).reshape(m["shape"])
                 if tuple(arr.shape) != tuple(np.shape(w)):
                     raise ValueError(f"checkpoint leaf of shape {arr.shape} "
                                      f"where {tuple(np.shape(w))} is "
                                      f"expected")
-                out.append(_like_leaf(arr, w))
-    return _unflatten(like, iter(out))
+                out.append(_like_leaf(arr, w, bf16))
+    return unflatten(like, out)

@@ -74,20 +74,25 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     }
 
 
-def encode(params: PyTree, cfg: ArchConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(params: PyTree, cfg: ArchConfig, frames: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """frames: (B, S_enc, d) precomputed frame embeddings (the frontend
-    stub) -> the encoder's memory (B, S_enc, d)."""
+    stub) -> the encoder's memory (B, S_enc, d).  ``remat`` recomputes
+    each layer's activations in the backward."""
     acfg = _acfg(cfg, causal=False)
     B, S, _ = frames.shape
     positions = _arange_positions(B, S, frames.device)
-    x = frames
-    for l in range(cfg.encoder_layers):
-        lp = layers.layer_params(params["encoder"], l)
+
+    def layer(lp, x):
         h = layers.norm_apply(cfg.norm, lp["attn_norm"], x)
         x = x + layers.attention(lp["attn"], acfg, h, positions)
         h = layers.norm_apply(cfg.norm, lp["mlp_norm"], x)
-        x = x + layers.mlp(lp["mlp"], h, cfg.mlp_kind)
+        return x + layers.mlp(lp["mlp"], h, cfg.mlp_kind)
+
+    body = layers.maybe_remat(layer, remat)
+    x = frames
+    for lp in layers.unstack(params["encoder"]):
+        x = body(lp, x)
     return layers.norm_apply(cfg.norm, params["enc_norm"], x)
 
 
@@ -111,17 +116,20 @@ def _decoder_layer(cfg: ArchConfig, lp: PyTree, x, positions, memory):
     return x + layers.mlp(lp["mlp"], h, cfg.mlp_kind)
 
 
-def forward(params: PyTree, cfg: ArchConfig,
-            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: PyTree, cfg: ArchConfig, batch: dict,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward over ``frames`` and ``tokens``.  Returns
-    (logits, aux_loss = 0)."""
-    memory = encode(params, cfg, batch["frames"])
+    (logits, aux_loss = 0).  ``remat`` recomputes each encoder and decoder
+    layer's activations in the backward."""
+    memory = encode(params, cfg, batch["frames"], remat=remat)
     x = layers.embed(params["embed"], batch["tokens"])
     B, S = batch["tokens"].shape
     positions = _arange_positions(B, S, x.device)
-    for l in range(cfg.num_layers):
-        x = _decoder_layer(cfg, layers.layer_params(params["decoder"], l), x,
-                           positions, memory)
+    body = layers.maybe_remat(
+        lambda lp, x, memory: _decoder_layer(cfg, lp, x, positions, memory),
+        remat)
+    for lp in layers.unstack(params["decoder"]):
+        x = body(lp, x, memory)
     x = layers.norm_apply(cfg.norm, params["final_norm"], x)
     return (layers.linear(params["lm_head"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))

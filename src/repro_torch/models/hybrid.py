@@ -75,27 +75,35 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     }
 
 
-def _shared_attn(params: PyTree, cfg: ArchConfig, x: torch.Tensor,
-                 positions: torch.Tensor, **kv_kw) -> torch.Tensor:
-    sp = params["shared"]
+def _shared_attn(sp: PyTree, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One application of the shared attention + MLP block (params
+    ``sp``) to the residual stream."""
     acfg = transformer.attn_config(cfg)
     h = layers.norm_apply(cfg.norm, sp["attn_norm"], x)
-    x = x + layers.attention(sp["attn"], acfg, h, positions, **kv_kw)
+    x = x + layers.attention(sp["attn"], acfg, h, positions)
     h = layers.norm_apply(cfg.norm, sp["mlp_norm"], x)
     return x + layers.mlp(sp["mlp"], h, cfg.mlp_kind)
 
 
-def forward(params: PyTree, cfg: ArchConfig,
-            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits, aux_loss = 0)."""
+def forward(params: PyTree, cfg: ArchConfig, batch: dict,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits, aux_loss = 0).  ``remat``
+    recomputes each group's activations (its Mamba2 blocks and the shared
+    block's application) in the backward, as the reference checkpoints its
+    group body."""
     x = layers.embed(params["embed"], batch["tokens"])
     B, S = batch["tokens"].shape
     positions = transformer.make_positions(cfg, B, S, device=x.device)
-    ng, every = _groups(cfg)
-    for g in range(ng):
-        for e in range(every):
-            x = ssm.block_forward(_mamba_params(params, g, e), cfg, x)
-        x = _shared_attn(params, cfg, x, positions)
+
+    def group(gp, shared, x):
+        for lp in layers.unstack(gp):
+            x = ssm.block_forward(lp, cfg, x)
+        return _shared_attn(shared, cfg, x, positions)
+
+    body = layers.maybe_remat(group, remat)
+    for gp in layers.unstack(params["mamba"]):
+        x = body(gp, params["shared"], x)
     x = layers.rmsnorm(params["final_norm"], x)
     return (layers.linear(params["lm_head"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))

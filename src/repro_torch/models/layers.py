@@ -16,11 +16,13 @@ one card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 PyTree = Any
 
@@ -36,6 +38,31 @@ def layer_params(tree: PyTree, l: int) -> PyTree:
     if isinstance(tree, dict):
         return {k: layer_params(v, l) for k, v in tree.items()}
     return tree[l]
+
+
+def unstack(tree: PyTree) -> list[PyTree]:
+    """Every layer's params of a stacked tree, each leaf unbound along its
+    leading axis once (views).  ``forward`` walks its layers this way: the
+    backward of one ``unbind`` is a single ``stack``, where indexing each
+    layer out of a stacked leaf (``layer_params``) would give every layer's
+    gradient a zero tensor of the whole leaf with one slice filled."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[l] for k, v in parts.items()} for l in range(n)]
+    return list(torch.unbind(tree))
+
+
+def maybe_remat(fn: Callable, remat: bool) -> Callable:
+    """``fn``, or with ``remat`` ``fn`` under activation checkpointing: the
+    reference's ``jax.checkpoint(policy=nothing_saveable)``.  Only its
+    arguments are kept for the backward, which runs ``fn`` again to
+    recompute the rest; pass a layer's params as arguments.  Nothing in
+    these models draws random numbers, so no RNG state is stashed."""
+    if not remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 def _stack_into(dst: PyTree, src: PyTree, l: int) -> None:

@@ -45,8 +45,8 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     return family_module(cfg).init_params(generator, cfg, device=device)
 
 
-def forward(params, cfg: ArchConfig, batch):
-    return family_module(cfg).forward(params, cfg, batch)
+def forward(params, cfg: ArchConfig, batch, remat: bool = False):
+    return family_module(cfg).forward(params, cfg, batch, remat=remat)
 
 
 def prefill(params, cfg: ArchConfig, batch, max_len: int):

@@ -247,12 +247,14 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     }
 
 
-def forward(params: PyTree, cfg: ArchConfig,
-            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits, aux_loss = 0)."""
+def forward(params: PyTree, cfg: ArchConfig, batch: dict,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits, aux_loss = 0).  ``remat``
+    recomputes each block's activations in the backward."""
     x = layers.embed(params["embed"], batch["tokens"])
-    for l in range(cfg.num_layers):
-        x = block_forward(layers.layer_params(params["layers"], l), cfg, x)
+    body = layers.maybe_remat(lambda lp, x: block_forward(lp, cfg, x), remat)
+    for lp in layers.unstack(params["layers"]):
+        x = body(lp, x)
     x = layers.rmsnorm(params["final_norm"], x)
     return (layers.linear(params["lm_head"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))

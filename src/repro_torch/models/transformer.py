@@ -4,7 +4,7 @@ experts in place of the MLP, ``cfg.moe``).
 
 Layers are *stacked*: every layer-param leaf carries a leading ``L`` dim,
 as in the JAX package, whose ``lax.scan`` over ``params["layers"]`` is a
-Python loop here that indexes the stacked leaves.  Params and caches are
+Python loop here over the stacked leaves' layers.  Params and caches are
 plain dicts of tensors on one device; functions take the device of their
 inputs, and ``init_params``/``init_cache`` take an explicit ``device``.
 As in the reference, ``forward`` routes a MoE layer's groups all at once
@@ -145,17 +145,19 @@ def embed_inputs(params: PyTree, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     return x
 
 
-def forward(params: PyTree, cfg: ArchConfig,
-            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: PyTree, cfg: ArchConfig, batch: dict,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits, aux_loss): the sum of the
-    MoE layers' load-balancing losses, 0 for a dense model."""
+    MoE layers' load-balancing losses, 0 for a dense model.  ``remat``
+    recomputes each layer's activations in the backward."""
     x = embed_inputs(params, cfg, batch)
     positions = _batch_positions(cfg, batch)
     acfg = attn_config(cfg)
+    body = layers.maybe_remat(
+        lambda lp, x: _layer_fwd(cfg, acfg, lp, x, positions), remat)
     auxs = []
-    for l in range(cfg.num_layers):
-        lp = layers.layer_params(params["layers"], l)
-        x, aux = _layer_fwd(cfg, acfg, lp, x, positions)
+    for lp in layers.unstack(params["layers"]):
+        x, aux = body(lp, x)
         auxs.append(aux)
     x = layers.norm_apply(cfg.norm, params["final_norm"], x)
     logits = unembed(params, cfg, x)

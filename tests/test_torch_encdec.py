@@ -17,7 +17,7 @@ from repro_torch.models import encdec, registry
 from repro_torch.serve import engine
 from test_torch_lm import (ARCH_KW, _cfgs, _close, _close_caches, _jforward,
                            _jserve, _params, _rand, _tokens, _tree_signature,
-                           _tserve)
+                           _tserve, backward_cases, check_backward)
 
 torch.set_num_threads(2)
 
@@ -142,3 +142,8 @@ def test_engine_steps_serve_it():
             got.append(token[:, 0].tolist())
         out.append(got)
     assert out[1] == out[0]
+
+
+@pytest.mark.parametrize("name", backward_cases("encdec"))
+def test_backward_with_and_without_remat(name):
+    check_backward(name)

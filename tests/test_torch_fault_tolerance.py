@@ -135,6 +135,43 @@ class TestCheckpoint:
             np.testing.assert_array_equal(got, want)
 
 
+    @pytest.mark.parametrize("writer", ["torch", "jax"])
+    def test_bf16_leaves_round_trip_across_packages(self, tmp_path, writer):
+        """A bf16 tensor (a bf16 LM's params) is saved as its 16-bit words
+        under the dtype name ``bfloat16``, as the JAX package saves its
+        bf16 arrays: it restores bit for bit in this package and in the
+        other, either way."""
+        import jax.numpy as jnp
+        import ml_dtypes
+
+        vals = np.array([[1.0, -0.00390625, 3.140625], [65280.0, 0.0,
+                                                          -2.5]],
+                        np.float32)
+        t = {"w": torch.from_numpy(vals).to(torch.bfloat16),
+             "s": torch.tensor(0.5, dtype=torch.bfloat16)}
+        if writer == "torch":
+            store.save(str(tmp_path), 1, t)
+            back = store.restore(str(tmp_path), t)
+            for k in t:
+                assert back[k].dtype == torch.bfloat16
+                assert torch.equal(back[k], t[k])
+            like = {k: np.zeros(tuple(v.shape), ml_dtypes.bfloat16)
+                    for k, v in t.items()}
+            out = jax_store.restore(str(tmp_path), like, device=False)
+            for k in t:
+                np.testing.assert_array_equal(
+                    np.asarray(out[k], np.float32), t[k].float().numpy())
+        else:
+            jax_store.save(str(tmp_path), 1, {
+                k: jnp.asarray(v.float().numpy(), jnp.bfloat16)
+                for k, v in t.items()})
+            out = store.restore(str(tmp_path), {k: torch.zeros_like(v)
+                                                for k, v in t.items()})
+            for k in t:
+                assert out[k].dtype == torch.bfloat16
+                assert torch.equal(out[k], t[k])
+
+
 class TestFaultTolerance:
     def test_supervisor_recovers_from_failures(self, tmp_path):
         state = {"w": torch.zeros(4), "step": torch.tensor(0)}

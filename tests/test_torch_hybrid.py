@@ -18,7 +18,7 @@ from repro_torch.models import hybrid, registry
 from repro_torch.serve import engine
 from test_torch_lm import (ARCH_KW, _cfgs, _close, _close_caches, _jforward,
                            _jserve, _params, _tokens, _tree_signature,
-                           _tserve)
+                           _tserve, backward_cases, check_backward)
 
 torch.set_num_threads(2)
 
@@ -109,3 +109,8 @@ def test_serve_loop_tokens_equal_the_reference():
         out.append([r.generated for r in loop.run(reqs)])
     assert [len(g) for g in out[1]] == [6, 7, 8]
     assert out[1] == out[0]
+
+
+@pytest.mark.parametrize("name", backward_cases("hybrid"))
+def test_backward_with_and_without_remat(name):
+    check_backward(name)

@@ -22,7 +22,7 @@ from repro_torch.models import moe, registry
 from repro_torch.serve import engine
 from test_torch_lm import (ARCH_KW, _cfgs, _close, _close_caches, _jforward,
                            _jserve, _params, _rand, _tokens, _tree_signature,
-                           _tserve)
+                           _tserve, backward_cases, check_backward)
 
 torch.set_num_threads(2)
 
@@ -227,3 +227,8 @@ def test_cumsum_rounds_as_the_reference(n):
         got = moe._cumsum(t, 0)
         assert got.dtype == torch.bfloat16
         np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("name", backward_cases("moe"))
+def test_backward_with_and_without_remat(name):
+    check_backward(name)

@@ -21,7 +21,8 @@ from repro_torch.models import layers, registry, ssm
 from repro_torch.serve import engine
 from test_torch_lm import (ARCH_KW, FP32, _cfgs, _close, _close_caches,
                            _jforward, _jserve, _np, _params, _rand, _tokens,
-                           _tree_signature, _tserve)
+                           _tree_signature, _tserve, backward_cases,
+                           check_backward)
 
 torch.set_num_threads(2)
 
@@ -241,3 +242,8 @@ def test_init_cache_ignores_max_len():
     a = registry.init_cache(cfg, 3, 8, device="cpu")
     b = registry.init_cache(cfg, 3, 4096, device="cpu")
     assert _tree_signature(a) == _tree_signature(b)
+
+
+@pytest.mark.parametrize("name", backward_cases("ssm"))
+def test_backward_with_and_without_remat(name):
+    check_backward(name)
