@@ -159,6 +159,23 @@ script then exits non-zero and never prints its result line):
    1e-3, data vocab 512, no checkpoints): its last ten losses' mean must
    be below its first ten's by more than 0.5.
 
+10. The mesh path (after phase 9, before the timing), with the seven
+   kernels' counters set to 0 before it and read after: all must read 0.
+   A world-size-1 NCCL group (``dist.HashStore``) and a 1x1 ("data",
+   "model") ``DeviceMesh`` on the card; tinyllama-1.1b at full width in
+   bf16 from seed 0 takes ``MESH_TRAIN_STEPS`` AdamW steps of 8 x 256
+   through ``run_training(mesh=...)`` (remat on) and the same with
+   mesh=None: losses and grad norms within ``LM_TRAIN_FP32_TOL["rtol"]``,
+   every leaf after step 1 within ``LM_TRAIN_FP32_TOL``, every state leaf a
+   DTensor on the card; then ``MESH_TIMED`` more steps of each from its
+   final state for a warm median (the difference is DTensor's host
+   dispatch).  Then 4 requests of 32 tokens are prefilled and decoded 8
+   steps through the engine's steps on state placed by
+   ``serve.engine.place_for_serving`` (``mode="prefill"``, then
+   ``"decode"``; the cache on ``cache_specs``) and with mesh=None: greedy
+   tokens equal, every cache leaf a DTensor on the card.  Step times and
+   peak memory of both; the group is destroyed before the timing.
+
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -357,6 +374,18 @@ LM_100M = dict(d_model=640, layers=14, vocab=16384, steps=300, batch=2,
 # card, within the same.  Phase 8's logits agree card against CPU to
 # about 7e-6 (PERF.md §6).
 LM_TRAIN_FP32_TOL = dict(rtol=1e-5, param=1e-5, near_zero=1e-3)
+# Phase 10, the mesh path: tinyllama-1.1b at full width in bf16 on a 1x1
+# ("data", "model") DeviceMesh over a world-size-1 NCCL group, against the
+# same runs with mesh=None, each timed in the same phase: MESH_TRAIN_STEPS
+# AdamW steps of LM_TRAIN_BATCH x LM_TRAIN_SEQ through run_training (remat
+# on), then MESH_TIMED more steps of each on its final state for a warm
+# median; prefill of LM_REQUESTS prompts of MESH_PROMPT tokens and
+# MESH_DECODE greedy decode steps through the engine's steps (LM_MAX_LEN
+# slots).  Losses and grad norms to LM_TRAIN_FP32_TOL["rtol"], the params
+# after step 1 within LM_TRAIN_FP32_TOL, greedy tokens equal.
+MESH_ARCH = "tinyllama_1_1b"
+MESH_TRAIN_STEPS, MESH_TIMED = 2, 3
+MESH_PROMPT, MESH_DECODE = 32, 8
 # Published peaks of one H100 SXM at its 700 W limit (dense, no sparsity).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -1527,6 +1556,236 @@ def lm_train_phase(torch, dev) -> dict:
                              f"{out['launches']}")
     log(f"  the seven kernels' launches on the LM training path: "
         f"{out['launches']}")
+    return out
+
+
+def mesh_phase(torch, dev) -> dict:
+    """Phase 10: the mesh path (see the module docstring).  A world-size-1
+    process group (NCCL on the card, gloo on the CPU) and a 1x1 ("data",
+    "model") DeviceMesh; on it every op dispatches through DTensor, so the
+    difference from mesh=None is DTensor's host work per op.  The group is
+    destroyed before the phase returns."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry
+    from repro_torch.serve import engine
+    from repro_torch.train import steps
+    from repro_torch.tree import leaves
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def fresh():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            return torch.cuda.memory_allocated()
+        return 0
+
+    def peak_gib(base):
+        return ((torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                if dev.type == "cuda" else None)
+
+    def local(x):
+        return x.to_local() if isinstance(x, DTensor) else x
+
+    tol = LM_TRAIN_FP32_TOL
+    out = {"train": {}, "serve": {}}
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_test_mesh((1, 1), ("data", "model"),
+                                       device_type=dev.type)
+        cfg = registry.load_arch(MESH_ARCH)
+        ops.reset_launch_counts()
+
+        # (a) training through run_training, mesh=None then the mesh
+        orig = steps.build_train_step
+        for tag, m in (("none", None), ("mesh", mesh)):
+            rec = {"ms": [], "loss": [], "grad_norm": [], "first": None}
+
+            def build(cfg_, settings, mesh_=None, rec=rec):
+                fn = orig(cfg_, settings, mesh_)
+
+                def step(params, opt_state, batch):
+                    sync()
+                    t0 = time.perf_counter()
+                    new = fn(params, opt_state, batch)
+                    sync()
+                    rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                    rec["loss"].append(float(new[2]["loss"]))
+                    rec["grad_norm"].append(float(new[2]["grad_norm"]))
+                    if rec["first"] is None:
+                        rec["first"] = new[0]
+                    return new
+                return step
+
+            base = fresh()
+            steps.build_train_step = build
+            try:
+                res = launch_train.run_training(
+                    cfg, steps_n=MESH_TRAIN_STEPS,
+                    global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                    lr=3e-4, seed=SEED, log_every=1, mesh=m,
+                    device=dev if m is None else None)
+            finally:
+                steps.build_train_step = orig
+            sync()
+            state = res["state"]
+            if m is not None:
+                bad = [type(x).__name__ + (f" on {local(x).device}"
+                                           if isinstance(x, DTensor) else "")
+                       for x in leaves(state)
+                       if not (isinstance(x, DTensor)
+                               and local(x).device.type == dev.type)]
+                if bad:
+                    raise AssertionError(f"mesh state leaves off the mesh: "
+                                         f"{bad[:5]}")
+            # MESH_TIMED more steps from the final state, for a warm median
+            settings = steps.TrainSettings(learning_rate=3e-4, remat=True,
+                                           z_loss=1e-4)
+            fn = orig(cfg, settings, m)
+            batch = pipeline.to_device(pipeline.synthetic_lm_batch(
+                pipeline.DataConfig(cfg.vocab, LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                                    SEED), MESH_TRAIN_STEPS), dev)
+            if m is not None:
+                batch = sharding.place_tree(batch, sharding.to_named(
+                    sharding.batch_specs(cfg, batch, m), m))
+            warm = []
+            for _ in range(MESH_TIMED):
+                sync()
+                t0 = time.perf_counter()
+                fn(state["params"], state["opt"], batch)
+                sync()
+                warm.append((time.perf_counter() - t0) * 1e3)
+            out["train"][tag] = {
+                "step_ms": rec["ms"], "warm_step_ms": warm,
+                "warm_step_ms_median": statistics.median(warm),
+                "losses": rec["loss"], "grad_norms": rec["grad_norm"],
+                "peak_gib": peak_gib(base), "first": rec["first"]}
+            del res, state, fn
+        a, b = out["train"]["mesh"], out["train"]["none"]
+        for k in ("losses", "grad_norms"):
+            for g, w in zip(a[k], b[k]):
+                if not (math.isfinite(g) and
+                        abs(g - w) <= tol["rtol"] * max(abs(w), 1e-12)):
+                    raise AssertionError(f"mesh {k} {a[k]} against {b[k]}")
+        worst, far_total = 0.0, 0
+        for x, y in zip(leaves(a.pop("first")), leaves(b.pop("first"))):
+            x, y = local(x).float(), y.float()
+            mx = float(y.abs().max()) or 1.0
+            d = (x - y).abs()
+            far = int((d > tol["param"] * mx).sum())
+            if far > math.ceil(tol["near_zero"] * d.numel()) or \
+                    float(d.max()) > 2 * 3e-4 + tol["param"] * mx:
+                raise AssertionError(f"mesh params after step 1 differ: "
+                                     f"{float(d.max()) / mx:.3g} of the max, "
+                                     f"{far} of {d.numel()}")
+            worst, far_total = max(worst, float(d.max()) / mx), \
+                far_total + far
+        out["train"]["step1_param_rel"] = worst
+        out["train"]["step1_far_elements"] = far_total
+        out["train"]["dispatch_ms"] = (a["warm_step_ms_median"]
+                                       - b["warm_step_ms_median"])
+        log(f"  {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"bf16, AdamW, remat, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}) through "
+            f"run_training: mesh=None steps "
+            f"{[round(x, 2) for x in b['step_ms']]} ms, warm median "
+            f"{b['warm_step_ms_median']:.2f} ms, peak "
+            f"{b['peak_gib'] or float('nan'):.2f} GiB; 1x1 mesh steps "
+            f"{[round(x, 2) for x in a['step_ms']]} ms, warm median "
+            f"{a['warm_step_ms_median']:.2f} ms, peak "
+            f"{a['peak_gib'] or float('nan'):.2f} GiB; DTensor's dispatch "
+            f"{out['train']['dispatch_ms']:+.2f} ms a step; losses "
+            f"{[round(x, 4) for x in a['losses']]} (mesh=None "
+            f"{[round(x, 4) for x in b['losses']]}); params after step 1 "
+            f"within {worst:.3g} of the max ({far_total} elements beyond "
+            f"{tol['param']})")
+
+        # (b) serving through the engine's steps
+        shape = ShapeConfig("mesh-serve", LM_MAX_LEN, LM_REQUESTS, "decode")
+        params = registry.init_params(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+        prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+            1, cfg.vocab, (LM_REQUESTS, MESH_PROMPT)).astype(np.int32)).to(
+                dev)
+        runs = {}
+        for tag, m in (("none", None), ("mesh", mesh)):
+            base = fresh()
+            p = params
+            if m is not None:
+                p, b_sh = engine.place_for_serving(cfg, params, m, shape,
+                                                   mode="prefill")
+            prefill = engine.build_prefill_step(cfg, LM_MAX_LEN)
+            decode = engine.build_decode_step(cfg)
+            with torch.no_grad():
+                sync()
+                t0 = time.perf_counter()
+                logits, cache = prefill(p, {"tokens": prompts})
+                sync()
+                prefill_ms = (time.perf_counter() - t0) * 1e3
+                if m is not None:
+                    p, _ = engine.place_for_serving(cfg, params, m, shape,
+                                                    mode="decode")
+                    # prefill builds the cache in serve_shardings' layout
+                    bad = [k for k, v in cache.items() if k != "length"
+                           and not (isinstance(v, DTensor)
+                                    and local(v).device.type == dev.type
+                                    and tuple(v.placements)
+                                    == b_sh["cache"][k].placements)]
+                    if bad:
+                        raise AssertionError(f"cache leaves off the mesh: "
+                                             f"{bad}")
+                token = torch.argmax(local(logits)[:, -1], -1).to(
+                    torch.int32)[:, None]
+                toks, ms, last = [token[:, 0].tolist()], [], None
+                for _ in range(MESH_DECODE):
+                    sync()
+                    t0 = time.perf_counter()
+                    o = decode(p, {"token": token, "cache": cache})
+                    sync()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    cache, token = o["cache"], o["next_token"][:, None]
+                    toks.append(token[:, 0].tolist())
+                    last = local(o["logits"]).float()
+            runs[tag] = {"tokens": toks, "prefill_ms": prefill_ms,
+                         "decode_ms": ms,
+                         "decode_ms_median": statistics.median(ms[1:]),
+                         "peak_gib": peak_gib(base), "last": last}
+            del cache, p, prefill, decode
+        a, b = runs["mesh"], runs["none"]
+        if a["tokens"] != b["tokens"]:
+            raise AssertionError(f"mesh tokens {a['tokens']} against "
+                                 f"{b['tokens']}")
+        diff = float((a.pop("last") - b.pop("last")).abs().max())
+        if not math.isfinite(diff):
+            raise AssertionError("mesh decode logits not finite")
+        out["serve"] = {**runs, "last_logits_max_diff": diff}
+        del params
+        log(f"  {cfg.name} serving {LM_REQUESTS} requests ({MESH_PROMPT}-"
+            f"token prompts, {MESH_DECODE} decode steps): mesh=None prefill "
+            f"{b['prefill_ms']:.2f} ms, decode {b['decode_ms_median']:.2f} ms"
+            f" (median of steps 2-{MESH_DECODE}); 1x1 mesh prefill "
+            f"{a['prefill_ms']:.2f} ms, decode {a['decode_ms_median']:.2f} ms"
+            f"; tokens equal; last logits within {diff:.3g}; peak "
+            f"{b['peak_gib'] or float('nan'):.2f} / "
+            f"{a['peak_gib'] or float('nan'):.2f} GiB")
+        out["launches"] = ops.launch_counts()
+        if any(out["launches"].values()):
+            raise AssertionError(f"the mesh path launched SNN kernels: "
+                                 f"{out['launches']}")
+        log(f"  the seven kernels' launches on the mesh path: "
+            f"{out['launches']}")
+    finally:
+        dist.destroy_process_group()
     return out
 
 
@@ -2824,6 +3083,11 @@ def main() -> int:
                "example"):
         report["lm_train"] = lm_train_phase(torch, dev)
 
+    # ---- 10. the mesh path ----------------------------------------------
+    with Phase("the mesh path: tinyllama-1.1b at full width trains and "
+               "serves on a 1x1 DeviceMesh over NCCL"):
+        report["mesh"] = mesh_phase(torch, dev)
+
     # ---- 7. timing at the main path's shapes and traffic -----------------
     layers = dict(zip(names, zip(specs, [p for p in params if p])))
     per_layer = []
@@ -3158,6 +3422,7 @@ def main() -> int:
             "api_path_launches": api_launches[name],
             "lm_serving_launches": report["lm"]["launches"][name],
             "lm_training_launches": report["lm_train"]["launches"][name],
+            "mesh_path_launches": report["mesh"]["launches"][name],
             "max_abs_err": errs[name],
             "normal_weights_rel_err": normal.get(name),
             "ms": sum(r["ms"] for r in rows),

@@ -20,6 +20,12 @@ Guarantees:
     thread;
   * restore at ``like``'s types: tensors on each ``like`` tensor's device
     and dtype, NumPy arrays at each ``like`` array's dtype;
+  * sharded state: a DTensor leaf is saved whole (``full_tensor``, a
+    collective every rank of its mesh joins), and rank 0 alone writes;
+    ``restore(..., shardings=...)`` places each leaf on a target mesh, which
+    need not be the one it was saved from (an elastic restart on another
+    layout), and a DTensor ``like`` leaf is restored onto its own mesh and
+    placements;
   * ``keep_last`` retention.
 """
 from __future__ import annotations
@@ -34,6 +40,7 @@ import msgpack
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, place, whole
 from repro_torch.tree import leaves, unflatten
 
 try:
@@ -117,30 +124,58 @@ _BF16 = "bfloat16"
 def _host_copy(leaf) -> tuple[np.ndarray, Optional[str]]:
     """A leaf as a host array of its own, and the dtype name the manifest
     records if not the array's: a tensor is detached and copied off its
-    device (copied on the CPU too), an array copied; a bf16 tensor comes
-    back as its raw 16-bit words under the name ``bfloat16``."""
+    device (copied on the CPU too), a DTensor gathered whole first, an
+    array copied; a bf16 tensor comes back as its raw 16-bit words under
+    the name ``bfloat16``."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
+        t = whole(leaf).detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy(), _BF16
         return t.numpy(), None
     return np.array(leaf), None
 
 
+def sharded(tree: Tree) -> bool:
+    """Whether ``tree`` holds a DTensor leaf (state on a mesh, which every
+    rank saves together and rank 0 writes)."""
+    return any(is_dtensor(x) for x in leaves(tree))
+
+
+def _writes(tree: Tree) -> bool:
+    """Whether this process writes ``tree``: always, unless the tree is on
+    a mesh and this is not rank 0."""
+    import torch.distributed as dist
+    return not (sharded(tree) and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
 def save(directory: str, step: int, tree: Tree,
          keep_last: Optional[int] = None) -> str:
-    """Synchronous checkpoint save.  Returns the published path."""
-    return _write(directory, step, [_host_copy(x) for x in leaves(tree)],
-                  keep_last)
+    """Synchronous checkpoint save.  Returns the published path.  State on
+    a mesh: every rank calls this, rank 0 writes, and every rank returns
+    once the checkpoint is published."""
+    host = [_host_copy(x) for x in leaves(tree)]
+    if _writes(tree):
+        _write(directory, step, host, keep_last)
+    if sharded(tree):
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.barrier()
+    return _step_dir(directory, step)
 
 
 def save_async(directory: str, step: int, tree: Tree,
                keep_last: Optional[int] = None) -> threading.Thread:
     """Copy every leaf to the host now; compress and write on a background
-    thread, which is returned started (join it to wait for the publish)."""
+    thread, which is returned started (join it to wait for the publish).
+    State on a mesh: every rank gathers, rank 0's thread writes, and the
+    other ranks' threads do nothing (a reader joins, then waits at a
+    barrier, as ``TrainSupervisor`` does)."""
     host = [_host_copy(x) for x in leaves(tree)]
-    t = threading.Thread(target=_write, args=(directory, step, host,
-                                              keep_last), daemon=True)
+    writes = _writes(tree)
+    t = threading.Thread(target=_write if writes else (lambda *a: None),
+                         args=(directory, step, host, keep_last),
+                         daemon=True)
     t.start()
     return t
 
@@ -208,10 +243,17 @@ def _like_leaf(arr: np.ndarray, want, bf16: bool):
     return np.asarray(arr, dtype=np.asarray(want).dtype)
 
 
-def restore(directory: str, like: Tree, step: Optional[int] = None) -> Tree:
+def restore(directory: str, like: Tree, step: Optional[int] = None,
+            shardings: Optional[Tree] = None) -> Tree:
     """Restore into the structure of ``like``: each leaf a tensor on the
     ``like`` tensor's device and dtype, or a NumPy array at the ``like``
-    array's dtype; raises if the leaf count or a shape differs."""
+    array's dtype; raises if the leaf count or a shape differs.
+
+    ``shardings``: optional tree of ``sharding.NamedSharding`` for the
+    TARGET mesh, shaped like ``like``: each tensor leaf is placed on it (an
+    elastic restart on another layout).  Without it a DTensor ``like``
+    leaf comes back on its own mesh and placements.  Every rank reads the
+    checkpoint and keeps its blocks."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -239,4 +281,28 @@ def restore(directory: str, like: Tree, step: Optional[int] = None) -> Tree:
                                      f"where {tuple(np.shape(w))} is "
                                      f"expected")
                 out.append(_like_leaf(arr, w, bf16))
+    targets = _targets(like, shardings)
+    if any(t is not None for t in targets):
+        out = [place(x, t) if t is not None and isinstance(x, torch.Tensor)
+               else x for x, t in zip(out, targets)]
     return unflatten(like, out)
+
+
+def _targets(like: Tree, shardings: Optional[Tree]) -> list:
+    """Each leaf's target ``NamedSharding``, or None: from ``shardings``
+    when given, else a DTensor ``like`` leaf's own mesh and placements."""
+    want = leaves(like)
+    if shardings is not None:
+        shs = leaves(shardings)
+        if len(shs) != len(want):
+            raise ValueError(f"{len(shs)} shardings for {len(want)} leaves")
+        return shs
+    return [_DTensorTarget(w) if is_dtensor(w) else None for w in want]
+
+
+class _DTensorTarget:
+    """A DTensor's own mesh and placements, as ``place`` reads a
+    ``NamedSharding``."""
+
+    def __init__(self, x):
+        self.mesh, self.placements = x.device_mesh, tuple(x.placements)

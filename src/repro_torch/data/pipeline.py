@@ -4,14 +4,14 @@ batches as tensors.
 
 Determinism: batch ``i`` of a given (seed, config) is identical regardless
 of host count, the elastic-restart requirement; ``host_slice`` is the rows
-of the global batch one host of several builds.  The reference's sharded
-device batches (its ``shardings`` argument) come with the distribution
-layer: this package runs a model on one card.
+of the global batch one host of several builds.  On a mesh every rank
+draws the same global batch and keeps its block of it, as
+``device_batches(..., shardings=...)`` places it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -69,10 +69,26 @@ def to_device(host: dict[str, np.ndarray],
             for k, v in host.items()}
 
 
+def device_batch(cfg: DataConfig, step: int, device: DeviceLike = None,
+                 shardings: Optional[dict] = None) -> dict:
+    """Batch ``step`` on ``device``.  ``shardings``: a
+    ``sharding.NamedSharding`` per key (from ``batch_specs``); the batch is
+    then DTensors on that mesh, each rank keeping its block, on the mesh's
+    device type unless ``device`` says otherwise."""
+    if shardings is None:
+        return to_device(synthetic_lm_batch(cfg, step), device)
+    from repro_torch.distributed.sharding import place
+    device = device or next(iter(shardings.values())).mesh.device_type
+    batch = to_device(synthetic_lm_batch(cfg, step), device)
+    return {k: place(v, shardings[k]) for k, v in batch.items()}
+
+
 def device_batches(cfg: DataConfig, device: DeviceLike = None,
-                   start_step: int = 0) -> Iterator[dict]:
-    """Device batches from ``start_step`` on (restart support)."""
+                   start_step: int = 0,
+                   shardings: Optional[dict] = None) -> Iterator[dict]:
+    """``device_batch`` of every step from ``start_step`` on (restart
+    support)."""
     step = start_step
     while True:
-        yield to_device(synthetic_lm_batch(cfg, step), device)
+        yield device_batch(cfg, step, device, shardings)
         step += 1

@@ -30,9 +30,13 @@ accuracy.  The rules that make it hold:
   ``synthetic.batches(..., seed=job.seed)`` iterator per cell, stacked per
   step.
 
-Placement is one card: the slab lives on the cache's device.  (The JAX
-package's ``stack_mesh``/``cell_specs`` split a slab over several devices;
-the port has no such split yet.)
+Placement: ``stack_mesh`` is the JAX package's 1-D ``"cells"`` mesh over
+the local cards, when the slab divides evenly over more than one; then
+``_shard`` splits the slab into one chunk a card along the cell axis
+(``cell_specs``: every leaf leads with it) and each card trains its chunk
+with the same slab step, one host thread a card.  Cells never communicate,
+so splitting a slab changes no cell's bits.  One card (or a slab that does
+not divide) keeps the whole slab on the cache's device.
 
 Results unstack and publish per cell through ``TraceCache.publish``, so
 stacking is invisible to every consumer: cache keys never mention the
@@ -55,6 +59,8 @@ from repro_torch.core.workloads.cache import CellArtifact, TraceCache
 from repro_torch.data import synthetic
 from repro_torch.device import DeviceLike
 from repro_torch.distributed.cellfarm import CellJob, CellOutcome
+from repro_torch.distributed.sharding import P
+from repro_torch.tree import tree_map
 
 #: cells per training slab: bounds device memory (C x params, batches and
 #: activations)
@@ -109,6 +115,77 @@ def group_jobs(jobs: Sequence[CellJob]) -> dict[str, list[int]]:
     for i, job in enumerate(jobs):
         groups.setdefault(stack_signature(job), []).append(i)
     return groups
+
+
+# ---------------------------------------------------------------------------
+# Cell-axis sharding (the sharding.py rules idiom, one rule)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CellMesh:
+    """A 1-D ``"cells"`` mesh over local cards.  One process drives them
+    all (cells never communicate), so it is a list of devices, not a
+    ``DeviceMesh`` over a process group."""
+    devices: tuple
+
+    axis_names = ("cells",)
+
+    @property
+    def shape(self) -> dict:
+        return {"cells": len(self.devices)}
+
+
+def stack_mesh(n_cells: int) -> Optional[CellMesh]:
+    """A 1-D ``"cells"`` mesh over every local card, when the stack
+    divides evenly over more than one; ``None`` keeps the slab on one
+    device."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n > 1 and n_cells % n == 0:
+        return CellMesh(tuple(torch.device("cuda", i) for i in range(n)))
+    return None
+
+
+def cell_specs(tree):
+    """Spec rule table for stacked-cell state: every leaf leads with the
+    cell axis, so the single rule shards dim 0 over ``"cells"`` and
+    replicates the rest (entries beyond the spec are None)."""
+    return tree_map(lambda _: P("cells"), tree)
+
+
+def _shard(jobs: Sequence[CellJob], mesh: Optional[CellMesh],
+           device: torch.device) -> list[tuple]:
+    """The slab's chunks along the cell axis, with the device each trains
+    on: one chunk a card of ``mesh``, or the whole slab on ``device``."""
+    if mesh is None:
+        return [(device, list(jobs))]
+    per = len(jobs) // len(mesh.devices)
+    return [(dev, list(jobs[i * per:(i + 1) * per]))
+            for i, dev in enumerate(mesh.devices)]
+
+
+def _train_sharded(jobs: Sequence[CellJob], device: torch.device,
+                   stats: Optional[dict] = None) -> list[tuple]:
+    """``_train_slab`` of the slab's chunks, each on its card (a host
+    thread a card when there are several); results in job order."""
+    mesh = stack_mesh(len(jobs)) if device.type == "cuda" else None
+    parts = _shard(jobs, mesh, device)
+    if len(parts) == 1:
+        return _train_slab(parts[0][1], parts[0][0], stats=stats)
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(part):
+        dev, chunk = part
+        own = {}
+        with torch.cuda.device(dev):
+            return _train_slab(chunk, dev, stats=own), own
+
+    with ThreadPoolExecutor(len(parts)) as pool:
+        done = list(pool.map(run, parts))
+    if stats is not None:
+        for _, own in done:
+            for k, v in own.items():
+                stats[k] = stats.get(k, 0) + v
+    return [r for results, _ in done for r in results]
 
 
 # ---------------------------------------------------------------------------
@@ -270,8 +347,8 @@ def resolve_stacked(jobs: Sequence[CellJob], root: str,
                 pending.append(i)
         for s in range(0, len(pending), max_stack):
             slab = pending[s:s + max_stack]
-            results = _train_slab([jobs[i] for i in slab], cache.device,
-                                  stats=stats)
+            results = _train_sharded([jobs[i] for i in slab],
+                                     cache.device, stats=stats)
             t0 = time.perf_counter()
             for i, (params, counts, acc) in zip(slab, results):
                 job = jobs[i]
@@ -287,5 +364,6 @@ def resolve_stacked(jobs: Sequence[CellJob], root: str,
     return outcomes
 
 
-__all__ = ["MAX_STACK", "CellArtifact", "group_jobs", "resolve_stacked",
-           "stack_params", "stack_signature"]
+__all__ = ["MAX_STACK", "CellArtifact", "CellMesh", "cell_specs",
+           "group_jobs", "resolve_stacked", "stack_mesh", "stack_params",
+           "stack_signature"]

@@ -4,10 +4,13 @@ On a real deployment the failure signal comes from the cluster manager
 (a missing heartbeat, a collective's timeout); here the supervisor wraps
 the training loop and reacts to Python exceptions identically: restore
 the latest checkpoint, then continue from its step.  The state is any
-tree (lists, tuples, dicts) of tensors or NumPy arrays; checkpoints are
-host-format (``repro_torch.checkpoint.store``) and restore onto the
-devices of the state they replace.  The port runs on one card, so it has
-no sharded restore.
+tree (lists, tuples, dicts) of tensors, DTensors or NumPy arrays;
+checkpoints are host-format (``repro_torch.checkpoint.store``) and restore
+onto the devices of the state they replace, or, with ``shardings``, onto
+a target mesh, which need not be the one they were saved from (an elastic
+restart on another layout).  State on a mesh is supervised by every rank
+alike: each rank runs the same steps, saves together (rank 0 writes) and
+restores together.
 
 A restart replays the steps after the checkpoint, so a supervised run
 equals an unsupervised one only when ``step_fn(state, step)`` draws its
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from repro_torch.checkpoint import store
 
@@ -39,12 +42,16 @@ class TrainSupervisor:
 
     ``state``: any tree (params, opt_state, step counter...).
     ``step_fn(state, step) -> state``.  Any exception triggers a restore of
-    the latest checkpoint and a restart from its step.
+    the latest checkpoint and a restart from its step.  ``shardings``: a
+    tree of ``sharding.NamedSharding`` shaped like ``state``, the layout a
+    restore places the state on.
     """
 
-    def __init__(self, cfg: SupervisorConfig, state: Any):
+    def __init__(self, cfg: SupervisorConfig, state: Any,
+                 shardings: Optional[Any] = None):
         self.cfg = cfg
         self.state = state
+        self.shardings = shardings
         self.restarts = 0
         self._pending = None
 
@@ -67,11 +74,16 @@ class TrainSupervisor:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if store.sharded(self.state):
+            # rank 0 writes a mesh's checkpoints: wait until it has
+            import torch.distributed as dist
+            if dist.is_initialized():
+                dist.barrier()
         step = store.latest_step(self.cfg.checkpoint_dir)
         if step is None:
             return 0
         self.state = store.restore(self.cfg.checkpoint_dir, self.state,
-                                   step=step)
+                                   step=step, shardings=self.shardings)
         log.warning("restored checkpoint at step %d", step)
         return step
 

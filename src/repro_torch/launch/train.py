@@ -1,6 +1,6 @@
-"""Training launcher: the LM train step for an architecture on one
-device, run under checkpoint/restart supervision with the deterministic
-data pipeline.
+"""Training launcher: the LM train step for an architecture, on one
+device or on a mesh, run under checkpoint/restart supervision with the
+deterministic data pipeline.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama_1_1b \
         --steps 100 --batch 8 --seq 256 [--full] [--device cpu]
@@ -12,8 +12,12 @@ dtype; without it ``small_config`` scales it down to ``--d-model``,
 given.  The batches are ``pipeline.synthetic_lm_batch`` (tokens and labels
 only), so, as in the JAX package, an encoder-decoder, which reads
 ``frames``, does not train here: ``train.steps.build_train_step`` trains it
-on a batch with frames.  ``--mesh single|multi`` needs the distribution
-layer and raises.
+on a batch with frames.
+
+``--mesh single|multi`` trains on the production mesh (16 x 16, or 2 x 16
+x 16) over a process group of 256 or 512 ranks, one a card, started as
+``torchrun`` starts them (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT`` in the environment); each rank runs this same command.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data import pipeline
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed import sharding
 from repro_torch.distributed.fault_tolerance import (SupervisorConfig,
                                                      TrainSupervisor)
 from repro_torch.models import registry
@@ -66,8 +71,16 @@ def run_training(cfg: ArchConfig, *, steps_n: int, global_batch: int,
     ``checkpoint_dir`` is given.  Returns ``{"state": {"params", "opt"},
     "losses": [one float a step]}``.  ``data_vocab`` may be smaller than
     the model's vocabulary, so that short demo runs can learn the
-    synthetic chain (token ids stay in range)."""
-    steps.no_mesh(mesh)
+    synthetic chain (token ids stay in range).
+
+    With a ``mesh`` every rank draws the same seeded init on the mesh's
+    device type (``device`` defaults to it), keeps its blocks of the
+    params and optimizer state as ``steps.state_shardings`` places them,
+    and each step's batch as ``sharding.batch_specs`` places it; the
+    returned state holds DTensors."""
+    steps.check_mesh(mesh)
+    if device is None and mesh is not None:
+        device = mesh.device_type
     dev = resolve(device)
     settings = steps.TrainSettings(learning_rate=lr,
                                    microbatches=microbatches, remat=True,
@@ -79,11 +92,20 @@ def run_training(cfg: ArchConfig, *, steps_n: int, global_batch: int,
     dcfg = pipeline.DataConfig(vocab=data_vocab or cfg.vocab,
                                seq_len=seq_len, global_batch=global_batch,
                                seed=seed)
-    step_fn = steps.build_train_step(cfg, settings)
+    shardings = batch_sh = None
+    if mesh is not None:
+        p_sh, o_sh, _, _ = steps.state_shardings(cfg, settings, mesh)
+        params = sharding.place_tree(params, p_sh)
+        opt_state = sharding.place_tree(opt_state, o_sh)
+        shardings = {"params": p_sh, "opt": o_sh}
+        batch_sh = sharding.to_named(sharding.batch_specs(
+            cfg, {k: torch.empty((global_batch, seq_len), device="meta")
+                  for k in ("tokens", "labels")}, mesh), mesh)
+    step_fn = steps.build_train_step(cfg, settings, mesh)
     losses = []
 
     def one_step(state, i):
-        batch = pipeline.to_device(pipeline.synthetic_lm_batch(dcfg, i), dev)
+        batch = pipeline.device_batch(dcfg, i, dev, batch_sh)
         t0 = time.time()
         params, opt, metrics = step_fn(state["params"], state["opt"], batch)
         loss = float(metrics["loss"])
@@ -100,7 +122,8 @@ def run_training(cfg: ArchConfig, *, steps_n: int, global_batch: int,
     if checkpoint_dir:
         sup = TrainSupervisor(
             SupervisorConfig(checkpoint_dir=checkpoint_dir,
-                             checkpoint_every=checkpoint_every), state)
+                             checkpoint_every=checkpoint_every), state,
+            shardings=shardings)
         del state
         state = sup.run(one_step, steps_n)
     else:
@@ -128,12 +151,19 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    steps.no_mesh(None if args.mesh == "none" else args.mesh)
     base = registry.load_arch(args.arch)
     cfg = base if args.full else small_config(base, args.d_model, args.layers,
                                               args.vocab)
+    mesh = None
+    if args.mesh != "none":
+        from repro_torch.launch.mesh import (init_distributed,
+                                             make_production_mesh)
+        dev_type = torch.device(args.device).type
+        init_distributed(dev_type)
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"),
+                                    device_type=dev_type)
     out = run_training(cfg, steps_n=args.steps, global_batch=args.batch,
-                       seq_len=args.seq, lr=args.lr,
+                       seq_len=args.seq, lr=args.lr, mesh=mesh,
                        checkpoint_dir=args.checkpoint_dir or None,
                        device=args.device)
     losses = out["losses"]

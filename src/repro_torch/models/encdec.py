@@ -122,7 +122,8 @@ def forward(params: PyTree, cfg: ArchConfig, batch: dict,
     (logits, aux_loss = 0).  ``remat`` recomputes each encoder and decoder
     layer's activations in the backward."""
     memory = encode(params, cfg, batch["frames"], remat=remat)
-    x = layers.embed(params["embed"], batch["tokens"])
+    x = layers.maybe_shard(layers.embed(params["embed"], batch["tokens"]),
+                           "batch", None, None)
     B, S = batch["tokens"].shape
     positions = _arange_positions(B, S, x.device)
     body = layers.maybe_remat(
@@ -141,18 +142,24 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
     slots, the cross K/V of ``enc_len`` source positions (``max_len`` if
     0), and ``length`` as a host int."""
     dev = resolve(device)
-    dtype = transformer._dtype(cfg)
-    hd = cfg.resolved_head_dim
-    L = cfg.num_layers
-    enc_len = enc_len or max_len
-
-    def zeros(n):
-        return torch.zeros((L, batch_size, n, cfg.n_kv, hd), dtype=dtype,
-                           device=dev)
-
-    return {"k": zeros(max_len), "v": zeros(max_len),
-            "cross_k": zeros(enc_len), "cross_v": zeros(enc_len),
+    return {**{k: torch.zeros(shape, dtype=dt, device=dev)
+               for k, (shape, dt, _) in _cache_leaves(
+                   cfg, batch_size, max_len, enc_len).items()},
             "length": 0}
+
+
+def _cache_leaves(cfg: ArchConfig, batch_size: int, max_len: int,
+                  enc_len: int) -> dict:
+    """Each cache tensor's (shape, dtype, initial value)."""
+    dtype = transformer._dtype(cfg)
+    shape = (cfg.num_layers, batch_size, 0, cfg.n_kv, cfg.resolved_head_dim)
+
+    def kv(n):
+        return (shape[:2] + (n,) + shape[3:], dtype, 0)
+
+    enc_len = enc_len or max_len
+    return {"k": kv(max_len), "v": kv(max_len),
+            "cross_k": kv(enc_len), "cross_v": kv(enc_len)}
 
 
 def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
@@ -163,12 +170,15 @@ def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
     B, S = batch["tokens"].shape
     S_enc = memory.shape[1]
     acfg = transformer.attn_config(cfg)
-    x = layers.embed(params["embed"], batch["tokens"])
+    x = layers.maybe_shard(layers.embed(params["embed"], batch["tokens"]),
+                           "batch", None, None)
     dev = x.device
     positions = _arange_positions(B, S, dev)
     cross = _cross_kv_args(B, S_enc, dev)
     hd = cfg.resolved_head_dim
-    cache = init_cache(cfg, B, max_len, enc_len=S_enc, device=dev)
+    cache = {**layers.new_cache(cfg, _cache_leaves(cfg, B, max_len, S_enc),
+                                B, x),
+             "length": 0}
     for l in range(cfg.num_layers):
         lp = layers.layer_params(params["decoder"], l)
         h = layers.norm_apply(cfg.norm, lp["self_norm"], x)
@@ -184,10 +194,10 @@ def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
                                  kv_override=(ck, cv), **cross)
         h = layers.norm_apply(cfg.norm, lp["mlp_norm"], x)
         x = x + layers.mlp(lp["mlp"], h, cfg.mlp_kind)
-        cache["k"][l, :, :S] = k
-        cache["v"][l, :, :S] = v
-        cache["cross_k"][l] = ck
-        cache["cross_v"][l] = cv
+        layers.write(cache["k"], (l, slice(None), slice(0, S)), k)
+        layers.write(cache["v"], (l, slice(None), slice(0, S)), v)
+        layers.write(cache["cross_k"], l, ck)
+        layers.write(cache["cross_v"], l, cv)
     x = layers.norm_apply(cfg.norm, params["final_norm"], x)
     logits = layers.linear(params["lm_head"], x[:, -1:, :])
     cache["length"] = S
@@ -204,7 +214,8 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
     dev = token.device
     positions = torch.full((B, 1), length, dtype=torch.int32, device=dev)
     acfg = transformer.attn_config(cfg)
-    x = layers.embed(params["embed"], token)
+    x = layers.maybe_shard(layers.embed(params["embed"], token),
+                           "batch", None, None)
     C = cache["k"].shape[2]
     kv_positions = _arange_positions(B, C, dev)
     kv_valid = kv_positions <= length
@@ -214,11 +225,11 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
     cross = _cross_kv_args(B, cache["cross_k"].shape[2], dev)
     for l in range(cfg.num_layers):
         lp = layers.layer_params(params["decoder"], l)
-        ck, cv = cache["k"][l], cache["v"][l]
         h = layers.norm_apply(cfg.norm, lp["self_norm"], x)
         k, v = layers.project_kv(lp["self_attn"], acfg, h, positions)
-        ck[:, slot] = k[:, 0]
-        cv[:, slot] = v[:, 0]
+        layers.write(cache["k"], (l, slice(None), slot), k[:, 0])
+        layers.write(cache["v"], (l, slice(None), slot), v[:, 0])
+        ck, cv = cache["k"][l], cache["v"][l]
         x = x + layers.attention(lp["self_attn"], acfg, h, positions,
                                  kv_override=(ck, cv),
                                  kv_positions=kv_positions, kv_valid=kv_valid)

@@ -92,7 +92,8 @@ def forward(params: PyTree, cfg: ArchConfig, batch: dict,
     recomputes each group's activations (its Mamba2 blocks and the shared
     block's application) in the backward, as the reference checkpoints its
     group body."""
-    x = layers.embed(params["embed"], batch["tokens"])
+    x = layers.maybe_shard(layers.embed(params["embed"], batch["tokens"]),
+                           "batch", None, None)
     B, S = batch["tokens"].shape
     positions = transformer.make_positions(cfg, B, S, device=x.device)
 
@@ -116,23 +117,26 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
     C, n_kv, hd), the slots' absolute positions (-1 = empty) and
     ``length`` as a host int."""
     dev = resolve(device)
+    return {**{k: torch.full(shape, fill, dtype=dt, device=dev)
+               for k, (shape, dt, fill) in _cache_leaves(
+                   cfg, batch_size, max_len).items()},
+            "length": 0}
+
+
+def _cache_leaves(cfg: ArchConfig, batch_size: int, max_len: int) -> dict:
+    """Each cache leaf's (shape, dtype, initial value)."""
     ng, every = _groups(cfg)
     d = ssm.dims(cfg)
     dtype = ssm._dtype(cfg)
     C = transformer.cache_capacity(cfg, max_len)
     hd = cfg.resolved_head_dim
     return {
-        "h": torch.zeros((ng, every, batch_size, d["n_heads"], d["N"],
-                          d["P"]), dtype=torch.float32, device=dev),
-        "conv": torch.zeros((ng, every, batch_size, d["W"] - 1,
-                             d["conv_ch"]), dtype=dtype, device=dev),
-        "k": torch.zeros((ng, batch_size, C, cfg.n_kv, hd), dtype=dtype,
-                         device=dev),
-        "v": torch.zeros((ng, batch_size, C, cfg.n_kv, hd), dtype=dtype,
-                         device=dev),
-        "slot_pos": torch.full((batch_size, C), -1, dtype=torch.int32,
-                               device=dev),
-        "length": 0,
+        "h": ((ng, every, batch_size, d["n_heads"], d["N"], d["P"]),
+              torch.float32, 0),
+        "conv": ((ng, every, batch_size, d["W"] - 1, d["conv_ch"]), dtype, 0),
+        "k": ((ng, batch_size, C, cfg.n_kv, hd), dtype, 0),
+        "v": ((ng, batch_size, C, cfg.n_kv, hd), dtype, 0),
+        "slot_pos": ((batch_size, C), torch.int32, -1),
     }
 
 
@@ -142,7 +146,8 @@ def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
     last-token logits.  As in ``transformer.prefill``, the KV caches keep
     the last C tokens: a pad when C >= S, else a scatter into rolling
     slots."""
-    x = layers.embed(params["embed"], batch["tokens"])
+    x = layers.maybe_shard(layers.embed(params["embed"], batch["tokens"]),
+                           "batch", None, None)
     B, S = batch["tokens"].shape
     dev = x.device
     positions = transformer.make_positions(cfg, B, S, device=dev)
@@ -153,21 +158,24 @@ def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
     pad_path = C >= S            # no wrap: the cache layout is a plain pad
     sp = params["shared"]
     ng, every = _groups(cfg)
-    cache = init_cache(cfg, B, max_len, device=dev)
+    cache = {**layers.new_cache(cfg, _cache_leaves(cfg, B, max_len), B, x),
+             "length": 0}
     pos_last = abs_pos[:, S - keep:]
     if pad_path:
-        cache["slot_pos"][:, :keep] = pos_last
+        layers.write(cache["slot_pos"], (slice(None), slice(0, keep)),
+                     pos_last)
     else:
         slots = (pos_last % C).long()                       # (B, keep)
         bidx = torch.arange(B, device=dev)[:, None]
-        cache["slot_pos"][bidx, slots] = pos_last.to(torch.int32)
+        layers.write(cache["slot_pos"], (bidx, slots),
+                     pos_last.to(torch.int32))
 
     for g in range(ng):
         for e in range(every):
             x, (h, conv) = ssm.block_forward(_mamba_params(params, g, e), cfg,
                                              x, return_state=True)
-            cache["h"][g, e] = h
-            cache["conv"][g, e] = conv
+            layers.write(cache["h"], (g, e), h)
+            layers.write(cache["conv"], (g, e), conv)
         h = layers.norm_apply(cfg.norm, sp["attn_norm"], x)
         k, v = layers.project_kv(sp["attn"], acfg, h, positions)
         x = x + layers.attention(sp["attn"], acfg, h, positions,
@@ -175,11 +183,13 @@ def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
         h2 = layers.norm_apply(cfg.norm, sp["mlp_norm"], x)
         x = x + layers.mlp(sp["mlp"], h2, cfg.mlp_kind)
         if pad_path:
-            cache["k"][g, :, :keep] = k[:, S - keep:]
-            cache["v"][g, :, :keep] = v[:, S - keep:]
+            layers.write(cache["k"], (g, slice(None), slice(0, keep)),
+                         k[:, S - keep:])
+            layers.write(cache["v"], (g, slice(None), slice(0, keep)),
+                         v[:, S - keep:])
         else:
-            cache["k"][g][bidx, slots] = k[:, S - keep:]
-            cache["v"][g][bidx, slots] = v[:, S - keep:]
+            layers.write(cache["k"], (g, bidx, slots), k[:, S - keep:])
+            layers.write(cache["v"], (g, bidx, slots), v[:, S - keep:])
 
     x = layers.rmsnorm(params["final_norm"], x)
     logits = layers.linear(params["lm_head"], x[:, -1:, :])
@@ -198,12 +208,13 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
                                            device=token.device)
     abs_pos = positions if positions.ndim == 2 else positions[0]
     acfg = transformer.attn_config(cfg)
-    x = layers.embed(params["embed"], token)
+    x = layers.maybe_shard(layers.embed(params["embed"], token),
+                           "batch", None, None)
     C = cache["k"].shape[2]
     slot = length % C
     # one slot position for every application, written before the groups
     slot_pos = cache["slot_pos"]
-    slot_pos[:, slot] = abs_pos[:, 0]
+    layers.write(slot_pos, (slice(None), slot), abs_pos[:, 0])
     kv_valid = slot_pos >= 0
     kv_positions = slot_pos.clamp(min=0)
     sp = params["shared"]
@@ -214,13 +225,13 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
             x, (h, conv) = ssm.block_decode(
                 _mamba_params(params, g, e), cfg, x, cache["h"][g, e],
                 cache["conv"][g, e])
-            cache["h"][g, e] = h
-            cache["conv"][g, e] = conv
-        ck, cv = cache["k"][g], cache["v"][g]
+            layers.write(cache["h"], (g, e), h)
+            layers.write(cache["conv"], (g, e), conv)
         h = layers.norm_apply(cfg.norm, sp["attn_norm"], x)
         k, v = layers.project_kv(sp["attn"], acfg, h, positions)
-        ck[:, slot] = k[:, 0]
-        cv[:, slot] = v[:, 0]
+        layers.write(cache["k"], (g, slice(None), slot), k[:, 0])
+        layers.write(cache["v"], (g, slice(None), slot), v[:, 0])
+        ck, cv = cache["k"][g], cache["v"][g]
         x = x + layers.attention(sp["attn"], acfg, h, positions,
                                  kv_override=(ck, cv),
                                  kv_positions=kv_positions,

@@ -9,9 +9,15 @@ exact before the fp32 sum), an additive ``-1e30`` mask, probabilities cast
 to the activation dtype before the second product, and the same query
 chunking.  No fused library attention is used.
 
-The reference's ``maybe_shard`` (a sharding constraint against an ambient
-mesh, a no-op outside one) has no counterpart: this package runs a model on
-one card.
+On a mesh (``launch.mesh.use_mesh``) the same functions run on DTensors:
+``maybe_shard`` is the reference's sharding constraint, a redistribute
+against the ambient mesh (a no-op outside one, or on a plain tensor);
+``on_blocks`` runs an op on each rank's blocks (attention, the embedding
+lookup, the MoE experts) and ``replicated`` on whole tensors (the MoE
+dispatch and combine), where DTensor lacks a sharding rule in some torch
+release; and the cache helpers (``new_cache``, ``write``) build and write a
+cache whether it is a tensor or a DTensor, a sharded one in its own
+layout, block by block.
 """
 from __future__ import annotations
 
@@ -24,7 +30,195 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding
+
 PyTree = Any
+
+
+# ---------------------------------------------------------------------------
+# Sharding against the ambient mesh
+# ---------------------------------------------------------------------------
+
+def _rep(mesh) -> list:
+    from torch.distributed.tensor import Replicate
+    return [Replicate()] * mesh.ndim
+
+
+def maybe_shard(x: torch.Tensor, *spec) -> torch.Tensor:
+    """Sharding constraint against the ambient mesh (``use_mesh``).
+
+    ``spec`` entries: axis name, tuple of names, None, or the sentinel
+    "batch", tried as ("pod", "data"), then "data", then None: the first
+    candidate whose axes are all on the mesh wins, as the reference's first
+    constraint that lowers does.  Outside a mesh, or on a tensor that is
+    not a DTensor, this is a no-op.  Uneven dims are fine (DTensor splits
+    them as ``torch.chunk`` does).
+    """
+    from repro_torch.launch.mesh import current_mesh
+    mesh = current_mesh()
+    if mesh is None or not sharding.is_dtensor(x):
+        return x
+    return x.redistribute(mesh, _placements(mesh, spec))
+
+
+def _placements(mesh, spec) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``, its "batch" entries
+    resolved as ``maybe_shard`` resolves them."""
+    names = set(mesh.mesh_dim_names)
+
+    def on_mesh(e):
+        return e is None or (e in names if isinstance(e, str)
+                             else all(a in names for a in e))
+
+    cand = tuple(None for _ in spec)
+    for batch_axes in (("pod", "data"), "data", None):
+        resolved = tuple(batch_axes if s == "batch" else s for s in spec)
+        if all(on_mesh(e) for e in resolved):
+            cand = resolved
+            break
+    return sharding.NamedSharding(mesh, sharding.P(*cand)).placements
+
+
+def on_blocks(fn: Callable, args: tuple, in_specs: tuple, out_spec: tuple,
+              out_shape: tuple, partial: Optional[str] = None):
+    """``fn`` on each rank's blocks: the reference's ``shard_map`` for a
+    function that is independent along the sharded dims (attention, per
+    batch row and head; experts, per expert).  On the ambient mesh each
+    tensor argument is put on its spec (a plain tensor counts as
+    replicated) and ``fn`` runs on the local tensors; its output is a
+    DTensor of global shape ``out_shape`` on ``out_spec``.  ``partial``
+    names a mesh axis over which the local outputs are partial sums (a
+    product whose contracted dim is split there): they are summed over it
+    (an all-reduce) into ``out_spec``.  A None spec passes its argument as
+    it is.  Without a mesh, or without a DTensor argument, this is
+    ``fn(*args)``."""
+    from repro_torch.launch.mesh import current_mesh
+    mesh = current_mesh()
+    if mesh is None or not any(sharding.is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial
+    out_pl = _placements(mesh, out_spec)
+    local_pl = out_pl
+    if partial is not None and partial in mesh.mesh_dim_names:
+        i = mesh.mesh_dim_names.index(partial)
+        local_pl = out_pl[:i] + (Partial(),) + out_pl[i + 1:]
+    local = []
+    for a, spec in zip(args, in_specs):
+        if spec is not None and isinstance(a, torch.Tensor):
+            if not sharding.is_dtensor(a):
+                a = DTensor.from_local(a, mesh, _rep(mesh), run_check=False)
+            pl = _placements(mesh, spec)
+            # an argument whole along a mesh dim that the output is split
+            # or summed on gets, from each rank, the gradient of its block
+            # alone: a partial sum over that dim
+            grad_pl = tuple(Partial() if p.is_replicate() and not
+                            o.is_replicate() else p
+                            for p, o in zip(pl, local_pl))
+            a = a.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+        local.append(a)
+    out = fn(*local).contiguous()       # the stride stated below
+    stride, n = [], 1
+    for d in reversed(out_shape):
+        stride.insert(0, n)
+        n *= d
+    out = DTensor.from_local(out, mesh, local_pl, run_check=False,
+                             shape=torch.Size(out_shape),
+                             stride=tuple(stride))
+    return out if local_pl == out_pl else out.redistribute(mesh, out_pl)
+
+
+def replicated(fn: Callable, *args):
+    """``fn(*args)`` with every DTensor among ``args`` (also inside dicts,
+    lists and tuples) gathered whole on every rank, and the tensors ``fn``
+    returns as replicated DTensors: the explicit redistribute around an op
+    that DTensor has no sharding rule for (each use is listed in PERF.md).
+    Autograd runs through the gather.  Without a DTensor argument this is
+    ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import tree_map
+    mesh = sharding.mesh_of(list(args))
+    if mesh is None:
+        return fn(*args)
+    rep = _rep(mesh)
+    local = tree_map(lambda x: x.redistribute(mesh, rep).to_local()
+                     if sharding.is_dtensor(x) else x, list(args))
+    out = fn(*local)
+    return tree_map(lambda o: DTensor.from_local(o, mesh, rep,
+                                                 run_check=False)
+                    if isinstance(o, torch.Tensor) else o, out)
+
+
+def new_cache(cfg, leaves: dict, batch_size: int,
+              like: torch.Tensor) -> dict:
+    """A cache's tensors, ``{key: (shape, dtype, fill)}`` each filled on
+    ``like``'s device.  When ``like`` is a DTensor, each is a DTensor on
+    its mesh in ``sharding.cache_specs``'s layout for the key, so that
+    every rank allocates its own block alone (the batch-1 layout splits
+    the sequence over data x model)."""
+    if not sharding.is_dtensor(like):
+        return {k: torch.full(tuple(shape), fill, dtype=dt,
+                              device=like.device)
+                for k, (shape, dt, fill) in leaves.items()}
+    from torch.distributed import tensor as dt_
+    mesh = like.device_mesh
+    specs = sharding.cache_specs(
+        cfg, {k: torch.empty(tuple(shape), dtype=dt, device="meta")
+              for k, (shape, dt, _) in leaves.items()}, mesh, batch_size)
+    return {k: dt_.full(tuple(shape), fill, dtype=dt, device_mesh=mesh,
+                        placements=sharding.NamedSharding(
+                            mesh, specs[k]).placements)
+            for k, (shape, dt, fill) in leaves.items()}
+
+
+def write(dst: torch.Tensor, index, value) -> None:
+    """``dst[index] = value`` in place, for a cache leaf that may be a
+    DTensor.  A replicated DTensor takes any index (each rank writes its
+    whole copy).  A sharded one: ints and step-1 slices are written by
+    each rank into the part of the region that lies in its own block
+    (nothing when none does), at the block's local index, since DTensor
+    has no sharding rule for an in-place write into a slice; an index
+    with tensors (prefill's rolling slots) gathers the sub-block under its
+    leading ints, scatters into that, and writes it back so."""
+    whole = sharding.whole
+    index = index if isinstance(index, tuple) else (index,)
+    if not sharding.is_dtensor(dst):
+        dst[tuple(whole(i) for i in index)] = whole(value)
+        return
+    value = whole(value)
+    if all(p.is_replicate() for p in dst.placements):
+        dst.to_local()[tuple(whole(i) for i in index)] = value
+        return
+    n = next((d for d, e in enumerate(index) if not isinstance(e, int)),
+             len(index))
+    if any(isinstance(e, torch.Tensor) for e in index[n:]):
+        sub = whole(dst[index[:n]] if n else dst).clone()
+        sub[tuple(whole(i) for i in index[n:])] = value
+        write(dst, index[:n], sub)
+        return
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    lshape, offset = compute_local_shape_and_global_offset(
+        dst.shape, dst.device_mesh, dst.placements)
+    index = index + (slice(None),) * (dst.ndim - len(index))
+    local, region, want = [], [], []
+    for d, e in enumerate(index):
+        n, off, lo_n = dst.shape[d], offset[d], lshape[d]
+        if isinstance(e, int):
+            e %= n
+            if not off <= e < off + lo_n:
+                return
+            local.append(e - off)
+            continue
+        start, stop, step = e.indices(n)
+        if step != 1:
+            raise ValueError(f"a sharded cache takes step-1 slices, not {e}")
+        lo, hi = max(start, off), min(stop, off + lo_n)
+        want.append(stop - start)
+        if lo >= hi:
+            return
+        local.append(slice(lo - off, hi - off))
+        region.append(slice(lo - start, hi - start))
+    dst.to_local()[tuple(local)] = value.expand(want)[tuple(region)]
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +438,15 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
 
 
 def embed(p: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embedding"][tokens]
+    """Rows of the table.  On a mesh each rank looks up its batch rows in
+    the whole table (the vocab-sharded table gathered): DTensor's rule for
+    the lookup's backward (an ``index_put``) fails on a sharded table in
+    some torch releases."""
+    table = p["embedding"]
+    return on_blocks(lambda w, t: w[t], (table, tokens),
+                     ((None, None), ("batch",) + (None,) * (tokens.ndim - 1)),
+                     ("batch",) + (None,) * tokens.ndim,
+                     tuple(tokens.shape) + (table.shape[-1],))
 
 
 # ---------------------------------------------------------------------------
@@ -308,11 +510,11 @@ def _mask_bias(cfg: AttnConfig, q_pos: torch.Tensor, kv_pos: torch.Tensor,
     ok = torch.ones((q.shape[0], q.shape[1], k.shape[2]), dtype=torch.bool,
                     device=q.device)
     if cfg.causal:
-        ok &= k <= q
+        ok = ok & (k <= q)
     if cfg.window:
-        ok &= k > q - cfg.window
+        ok = ok & (k > q - cfg.window)
     if kv_valid is not None:
-        ok &= kv_valid[:, None, :]
+        ok = ok & kv_valid[:, None, :]
     return _where_bias(ok)
 
 
@@ -325,6 +527,7 @@ def _attend_block(cfg: AttnConfig, q: torch.Tensor, k: torch.Tensor,
     (kv already expanded to full heads); bias: (B,Sq,Skv) additive."""
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores * (1.0 / math.sqrt(cfg.head_dim))
+    scores = maybe_shard(scores, "batch", "model", None, None)
     probs = torch.softmax(scores + bias[:, None], dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
@@ -361,7 +564,13 @@ def _attend(cfg: AttnConfig, q: torch.Tensor, k: torch.Tensor,
         else:
             bias = torch.zeros((B, Sq, Skv), dtype=torch.float32,
                                device=q.device)
-        return _attend_decode(cfg, q, k, v, bias)
+        # every rank its batch rows, all heads: the cache's split-KV
+        # layout (seq on "model") is gathered for the step
+        spec = ("batch", None, None, None)
+        return on_blocks(functools.partial(_attend_decode, cfg),
+                         (q, k, v, bias), (spec, spec, spec,
+                                           ("batch", None, None)),
+                         ("batch", None, None), (B, Sq, H * D))
     groups = cfg.n_heads // cfg.n_kv
     if groups > 1:
         k = k.repeat_interleave(groups, dim=2)
@@ -376,8 +585,18 @@ def _attend(cfg: AttnConfig, q: torch.Tensor, k: torch.Tensor,
         kvv = kv_valid[:, lo:hi] if kv_valid is not None else None
         return _mask_bias(cfg, q_abs_c, kv_abs[:, lo:hi], kvv)
 
+    # every rank its batch rows and heads (the reference's scores layout,
+    # ("batch", "model", None, None))
+    heads = ("batch", None, "model", None)
+
+    def block(qc, kc, vc, bias):
+        return on_blocks(functools.partial(_attend_block, cfg),
+                         (qc, kc, vc, bias), (heads, heads, heads,
+                                              ("batch", None, None)),
+                         heads, tuple(qc.shape))
+
     if Sq <= chunk:
-        out = _attend_block(cfg, q, k, v, bias_for(q_abs, 0, Skv, Sq))
+        out = block(q, k, v, bias_for(q_abs, 0, Skv, Sq))
     else:
         assert Sq % chunk == 0, (Sq, chunk)
         outs = []
@@ -391,10 +610,27 @@ def _attend(cfg: AttnConfig, q: torch.Tensor, k: torch.Tensor,
             hi = (i + 1) * chunk if causal_trunc else Skv
             if causal_trunc and cfg.window:
                 lo = max(0, (i + 1) * chunk - cfg.window - chunk)
-            outs.append(_attend_block(cfg, qc, k[:, lo:hi], v[:, lo:hi],
+            outs.append(block(qc, k[:, lo:hi], v[:, lo:hi],
                                       bias_for(qa, lo, hi, chunk)))
         out = torch.cat(outs, dim=1)
     return out.reshape(B, Sq, H * D)
+
+
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(..., n * hd) -> (..., n, hd).  On a mesh, a flattened head dim
+    split over a count of ranks that ``n`` heads do not fill evenly is
+    gathered first (an explicit redistribute): DTensor's view rule puts
+    the split on the heads dim alone and leaves some ranks an empty
+    block, where XLA splits the flattened dim as it is."""
+    if sharding.is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        last, pl = t.ndim - 1, t.placements
+        split = math.prod(t.device_mesh.size(i) for i, q in enumerate(pl)
+                          if q.is_shard(last))
+        if n % split:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if q.is_shard(last) else q for q in pl])
+    return t.reshape(*t.shape[:-1], n, hd)
 
 
 def attention(p: PyTree, cfg: AttnConfig, x: torch.Tensor,
@@ -411,19 +647,17 @@ def attention(p: PyTree, cfg: AttnConfig, x: torch.Tensor,
     cross_kv: (B, Skv, d) source sequence for cross-attention (k/v projected
     from it, no positional rotation).
     """
-    B, Sq, _ = x.shape
-    q = linear(p["wq"], x).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+    q = _split_heads(linear(p["wq"], x), cfg.n_heads, cfg.head_dim)
     q = _apply_positional(cfg, q, positions)
 
     if kv_override is not None:
         k, v = kv_override
     elif cross_kv is not None:
-        Skv = cross_kv.shape[1]
-        k = linear(p["wk"], cross_kv).reshape(B, Skv, cfg.n_kv, cfg.head_dim)
-        v = linear(p["wv"], cross_kv).reshape(B, Skv, cfg.n_kv, cfg.head_dim)
+        k = _split_heads(linear(p["wk"], cross_kv), cfg.n_kv, cfg.head_dim)
+        v = _split_heads(linear(p["wv"], cross_kv), cfg.n_kv, cfg.head_dim)
     else:
-        k = linear(p["wk"], x).reshape(B, Sq, cfg.n_kv, cfg.head_dim)
-        v = linear(p["wv"], x).reshape(B, Sq, cfg.n_kv, cfg.head_dim)
+        k = _split_heads(linear(p["wk"], x), cfg.n_kv, cfg.head_dim)
+        v = _split_heads(linear(p["wv"], x), cfg.n_kv, cfg.head_dim)
         k = _apply_positional(cfg, k, positions)
 
     if cross_kv is not None:
@@ -440,9 +674,8 @@ def attention(p: PyTree, cfg: AttnConfig, x: torch.Tensor,
 def project_kv(p: PyTree, cfg: AttnConfig, x: torch.Tensor,
                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K/V projection for cache fill.  x: (B, S, d) -> (B, S, n_kv, hd)."""
-    B, S, _ = x.shape
-    k = linear(p["wk"], x).reshape(B, S, cfg.n_kv, cfg.head_dim)
-    v = linear(p["wv"], x).reshape(B, S, cfg.n_kv, cfg.head_dim)
+    k = _split_heads(linear(p["wk"], x), cfg.n_kv, cfg.head_dim)
+    v = _split_heads(linear(p["wv"], x), cfg.n_kv, cfg.head_dim)
     k = _apply_positional(cfg, k, positions)
     return k, v
 

@@ -179,33 +179,73 @@ def _expert_ffn(p: PyTree, xin: torch.Tensor) -> torch.Tensor:
     return h @ p["w_down"]
 
 
+def _experts(p: PyTree, cfg: MoEConfig, xin: torch.Tensor) -> torch.Tensor:
+    """``_expert_ffn`` in ``sharding.param_spec``'s layout of the expert
+    weights on the ambient mesh: each rank runs its own experts when
+    "model" divides their count (expert parallel), else its slice of every
+    expert's ff dim, and those partial products are summed over "model";
+    a leading group dim of ``xin`` splits over the batch axes.  Without a
+    mesh this is ``_expert_ffn``."""
+    from repro_torch.launch.mesh import axis_sizes, current_mesh
+    mesh = current_mesh()
+    lead = ("batch",) + (None,) * (xin.ndim - 4) if xin.ndim > 3 else ()
+    sizes = axis_sizes(mesh) if mesh is not None else None
+    if sizes is not None and "model" in sizes.axis_names and (
+            cfg.num_experts % sizes.shape["model"] == 0):
+        x_spec = lead + ("model", None, None)
+        w_specs, partial = (("model", None, None),) * 3, None
+    else:
+        x_spec = lead + (None, None, None)
+        w_specs = ((None, None, "model"), (None, None, "model"),
+                   (None, "model", None))
+        partial = "model"
+
+    def ffn(x, w_gate, w_up, w_down):
+        return _expert_ffn({"w_gate": w_gate, "w_up": w_up,
+                            "w_down": w_down}, x)
+
+    return layers.on_blocks(ffn, (xin, p["w_gate"], p["w_up"], p["w_down"]),
+                            (x_spec,) + w_specs, x_spec, tuple(xin.shape),
+                            partial=partial)
+
+
 def _router_probs(p: PyTree, xg: torch.Tensor) -> torch.Tensor:
     logits = layers.linear(p["router"], xg).float()
     return torch.softmax(logits, dim=-1).to(xg.dtype)
 
 
+def _einsum_dispatch(probs: torch.Tensor, xg: torch.Tensor, top_k: int,
+                     capacity: int):
+    """(slots (..., E, C, d), combine weights, aux) of one-hot dispatch."""
+    dispatch, combine, aux = _topk_dispatch(probs, top_k, capacity)
+    xin = torch.einsum("...sd,...sec->...ecd", xg, dispatch)
+    return xin, combine, aux
+
+
+def _einsum_combine(y: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("...ecd,...sec->...sd", y, combine)
+
+
 def _group_einsum(p: PyTree, cfg: MoEConfig, xg: torch.Tensor,
                   capacity: int):
     """GShard-faithful one-hot dispatch (the baseline; see
-    ``MoEConfig.dispatch``).  xg: (..., S, d)."""
+    ``MoEConfig.dispatch``).  xg: (..., S, d).  On a mesh the router and
+    the experts run on their placements, the dispatch and combine on
+    whole tensors (``layers.replicated``)."""
     probs = _router_probs(p, xg)
-    dispatch, combine, aux = _topk_dispatch(probs, cfg.top_k, capacity)
-    xin = torch.einsum("...sd,...sec->...ecd", xg, dispatch)  # (..., E, C, d)
-    y = _expert_ffn(p, xin)
-    out = torch.einsum("...ecd,...sec->...sd", y, combine)
-    return out, aux
+    xin, combine, aux = layers.replicated(_einsum_dispatch, probs, xg,
+                                          cfg.top_k, capacity)
+    y = _experts(p, cfg, xin)                                 # (..., E, C, d)
+    return layers.replicated(_einsum_combine, y, combine), aux
 
 
-def _group_gather(p: PyTree, cfg: MoEConfig, xg: torch.Tensor,
-                  capacity: int):
-    """Gather-based dispatch: tokens land in expert slots by a scatter of
-    row indices and one gather; the combine is a gather per assignment and
-    a weighted sum.  xg: (..., S, d)."""
-    *lead, S, d = xg.shape
-    E, C, k = cfg.num_experts, capacity, cfg.top_k
-    xg3 = xg.reshape(-1, S, d)                                # (G, S, d)
-    G = xg3.shape[0]
-    probs = _router_probs(p, xg3)
+def _gather_dispatch(probs: torch.Tensor, xg3: torch.Tensor, top_k: int,
+                     capacity: int):
+    """Routing, then tokens into expert slots by a scatter of row indices
+    and one gather.  probs: (G, S, E); xg3: (G, S, d).  Returns the slots
+    (G, E, C, d), each assignment's slot (G, S, k) and gate, and aux."""
+    G, S, E = probs.shape
+    d, C, k = xg3.shape[-1], capacity, top_k
     expert_idx, gates, pos, keep, aux = _topk_routing(probs, k, C)
     # slot id per assignment; dropped tokens land in a trash slot E*C
     slot = torch.where(keep, expert_idx * C + pos,
@@ -215,19 +255,43 @@ def _group_gather(p: PyTree, cfg: MoEConfig, xg: torch.Tensor,
     # reference's scatter; kept slots are distinct while queue positions
     # are exact (fp32, or at most 256 tokens an expert in bf16), so then
     # duplicates land only in the trash slot, which is dropped.
-    gidx = torch.arange(G, device=xg.device)[:, None]
+    gidx = torch.arange(G, device=xg3.device)[:, None]
     token_for_slot = torch.full((G, E * C + 1), S, dtype=torch.long,
-                                device=xg.device)
+                                device=xg3.device)
     # jnp.repeat, each token id k times in a row: repeat_interleave, not
     # Tensor.repeat (which would tile 0..S-1 k times)
-    rows = torch.arange(S, device=xg.device).repeat_interleave(k)
+    rows = torch.arange(S, device=xg3.device).repeat_interleave(k)
     token_for_slot[gidx, slot.reshape(G, S * k)] = rows
     xg_pad = torch.cat([xg3, xg3.new_zeros((G, 1, d))], dim=1)
     xin = xg_pad[gidx, token_for_slot[:, :-1]].reshape(G, E, C, d)
-    y = _expert_ffn(p, xin)                                   # (G, E, C, d)
+    return xin, slot, gates, aux
+
+
+def _gather_combine(y: torch.Tensor, slot: torch.Tensor,
+                    gates: torch.Tensor) -> torch.Tensor:
+    """A gather per assignment from the expert outputs y (G, E, C, d) and
+    the gate-weighted sum: (G, S, d)."""
+    G, E, C, d = y.shape
+    gidx = torch.arange(G, device=y.device)[:, None]
     y_flat = torch.cat([y.reshape(G, E * C, d), y.new_zeros((G, 1, d))], 1)
     picked = y_flat[gidx[:, :, None], slot]                   # (G, S, k, d)
-    out = torch.sum(picked * gates[..., None].to(y.dtype), dim=-2)
+    return torch.sum(picked * gates[..., None].to(y.dtype), dim=-2)
+
+
+def _group_gather(p: PyTree, cfg: MoEConfig, xg: torch.Tensor,
+                  capacity: int):
+    """Gather-based dispatch: tokens land in expert slots by a scatter of
+    row indices and one gather; the combine is a gather per assignment and
+    a weighted sum.  xg: (..., S, d).  On a mesh the router and the
+    experts run on their placements, the routing, dispatch and combine on
+    whole tensors (``layers.replicated``)."""
+    *lead, S, d = xg.shape
+    xg3 = xg.reshape(-1, S, d)                                # (G, S, d)
+    probs = _router_probs(p, xg3)
+    xin, slot, gates, aux = layers.replicated(
+        _gather_dispatch, probs, xg3, cfg.top_k, capacity)
+    y = _experts(p, cfg, xin)                                 # (G, E, C, d)
+    out = layers.replicated(_gather_combine, y, slot, gates)
     return out.reshape(*lead, S, d), aux.reshape(lead)
 
 

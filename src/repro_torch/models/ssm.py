@@ -128,11 +128,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # into NaN
     decay = torch.where(causal[None, None, :, :, None], torch.exp(seg),
                         torch.zeros((), dtype=seg.dtype, device=x.device))
+    # the (B,nc,Q,Q,H) intermediates dominate SSD memory: heads on "model"
+    decay = layers.maybe_shard(decay, "batch", None, None, None, "model")
 
     # intra-chunk (quadratic): scores C_i . B_j, summed in float32 (the
     # reference's preferred_element_type; bf16 products are exact there)
     g = torch.einsum("bcin,bcjn->bcij", Cc.float(), Bc.float())
     m = g[..., None] * decay * dtc[:, :, None, :, :]          # (B,nc,Q,Q,H)
+    m = layers.maybe_shard(m, "batch", None, None, None, "model")
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", m.to(x.dtype), xc)
 
     # chunk summaries: S_c = sum_j exp(la_Q - la_j) dt_j B_j x_j
@@ -251,7 +254,8 @@ def forward(params: PyTree, cfg: ArchConfig, batch: dict,
             remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits, aux_loss = 0).  ``remat``
     recomputes each block's activations in the backward."""
-    x = layers.embed(params["embed"], batch["tokens"])
+    x = layers.maybe_shard(layers.embed(params["embed"], batch["tokens"]),
+                           "batch", None, None)
     body = layers.maybe_remat(lambda lp, x: block_forward(lp, cfg, x), remat)
     for lp in layers.unstack(params["layers"]):
         x = body(lp, x)
@@ -267,28 +271,37 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
     The state is O(1) in the sequence, so ``max_len`` is unused."""
     del max_len
     dev = resolve(device)
+    return {**{k: torch.zeros(shape, dtype=dt, device=dev)
+               for k, (shape, dt) in _state_shapes(cfg, batch_size).items()},
+            "length": 0}
+
+
+def _state_shapes(cfg: ArchConfig, batch_size: int) -> dict:
+    """Each state leaf's (shape, dtype)."""
     d = dims(cfg)
     L = cfg.num_layers
-    return {
-        "h": torch.zeros((L, batch_size, d["n_heads"], d["N"], d["P"]),
-                         dtype=torch.float32, device=dev),
-        "conv": torch.zeros((L, batch_size, d["W"] - 1, d["conv_ch"]),
-                            dtype=_dtype(cfg), device=dev),
-        "length": 0,
-    }
+    return {"h": ((L, batch_size, d["n_heads"], d["N"], d["P"]),
+                  torch.float32),
+            "conv": ((L, batch_size, d["W"] - 1, d["conv_ch"]),
+                     _dtype(cfg))}
 
 
 def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
             max_len: int) -> tuple[torch.Tensor, PyTree]:
     """Run the prompt, build the state, return last-token logits."""
-    x = layers.embed(params["embed"], batch["tokens"])
+    x = layers.maybe_shard(layers.embed(params["embed"], batch["tokens"]),
+                           "batch", None, None)
     S = x.shape[1]
-    cache = init_cache(cfg, x.shape[0], max_len, device=x.device)
+    B = x.shape[0]
+    cache = {**layers.new_cache(
+        cfg, {k: (shape, dt, 0)
+              for k, (shape, dt) in _state_shapes(cfg, B).items()}, B, x),
+             "length": 0}
     for l in range(cfg.num_layers):
         x, (h, conv) = block_forward(layers.layer_params(params["layers"], l),
                                      cfg, x, return_state=True)
-        cache["h"][l] = h
-        cache["conv"][l] = conv
+        layers.write(cache["h"], l, h)
+        layers.write(cache["conv"], l, conv)
     x = layers.rmsnorm(params["final_norm"], x)
     logits = layers.linear(params["lm_head"], x[:, -1:, :])
     cache["length"] = S
@@ -299,12 +312,13 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
                 cache: PyTree) -> tuple[torch.Tensor, PyTree]:
     """One-token decode.  The new states are written into the cache's
     tensors in place, so the cache passed in is the one returned."""
-    x = layers.embed(params["embed"], token)
+    x = layers.maybe_shard(layers.embed(params["embed"], token),
+                           "batch", None, None)
     for l in range(cfg.num_layers):
         x, (h, conv) = block_decode(layers.layer_params(params["layers"], l),
                                     cfg, x, cache["h"][l], cache["conv"][l])
-        cache["h"][l] = h
-        cache["conv"][l] = conv
+        layers.write(cache["h"], l, h)
+        layers.write(cache["conv"], l, conv)
     x = layers.rmsnorm(params["final_norm"], x)
     logits = layers.linear(params["lm_head"], x)
     cache["length"] = int(cache["length"]) + 1

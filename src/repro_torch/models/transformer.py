@@ -140,9 +140,13 @@ def embed_inputs(params: PyTree, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     patch embeddings overwrite the leading positions)."""
     x = layers.embed(params["embed"], batch["tokens"])
     if cfg.frontend == "vision" and "patch_embeds" in batch:
+        # out of place, as the reference's dynamic_update_slice: the
+        # patches (B, P, d) replace the first P positions
         pe = batch["patch_embeds"].to(x.dtype)
-        x[:, :pe.shape[1], :pe.shape[2]] = pe
-    return x
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    # pin the residual stream to the canonical activation layout (batch
+    # sharded, d replicated)
+    return layers.maybe_shard(x, "batch", None, None)
 
 
 def forward(params: PyTree, cfg: ArchConfig, batch: dict,
@@ -217,16 +221,18 @@ def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
     # token i (a pad); decode then writes at slot length % C == S.
     keep = min(C, S)
     shape = (cfg.num_layers, B, C, cfg.n_kv, cfg.resolved_head_dim)
-    cache_k = torch.zeros(shape, dtype=x.dtype, device=dev)
-    cache_v = torch.zeros(shape, dtype=x.dtype, device=dev)
+    cache = layers.new_cache(cfg, {"k": (shape, x.dtype, 0),
+                                   "v": (shape, x.dtype, 0),
+                                   "slot_pos": ((B, C), torch.int32, -1)},
+                             B, x)
+    cache_k, cache_v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
     pos_last = abs_pos[:, S - keep:]
-    slot_pos = torch.full((B, C), -1, dtype=torch.int32, device=dev)
     if C >= S:
-        slot_pos[:, :S] = pos_last
+        layers.write(slot_pos, (slice(None), slice(0, S)), pos_last)
     else:
         slots = (pos_last % C).long()                       # (B, keep)
         bidx = torch.arange(B, device=dev)[:, None]
-        slot_pos[bidx, slots] = pos_last.to(torch.int32)
+        layers.write(slot_pos, (bidx, slots), pos_last.to(torch.int32))
 
     for l in range(cfg.num_layers):
         lp = layers.layer_params(params["layers"], l)
@@ -236,12 +242,15 @@ def prefill(params: PyTree, cfg: ArchConfig, batch: dict,
                                  kv_override=(k, v), kv_positions=abs_pos)
         h2 = layers.norm_apply(cfg.norm, lp["mlp_norm"], x)
         x = x + _ffn(cfg, lp, h2)[0]
+        # cache entries in their split-KV layout (seq on "model")
+        k = layers.maybe_shard(k, "batch", "model", None, None)
+        v = layers.maybe_shard(v, "batch", "model", None, None)
         if C >= S:
-            cache_k[l, :, :S] = k
-            cache_v[l, :, :S] = v
+            layers.write(cache_k, (l, slice(None), slice(0, S)), k)
+            layers.write(cache_v, (l, slice(None), slice(0, S)), v)
         else:
-            cache_k[l][bidx, slots] = k[:, S - keep:]
-            cache_v[l][bidx, slots] = v[:, S - keep:]
+            layers.write(cache_k, (l, bidx, slots), k[:, S - keep:])
+            layers.write(cache_v, (l, bidx, slots), v[:, S - keep:])
 
     x = layers.norm_apply(cfg.norm, params["final_norm"], x)
     logits = unembed(params, cfg, x[:, -1:, :])
@@ -268,17 +277,17 @@ def decode_step(params: PyTree, cfg: ArchConfig, token: torch.Tensor,
     slot = length % C
     abs_pos = _abs_positions(positions)                     # (B, 1)
     slot_pos = cache["slot_pos"]
-    slot_pos[:, slot] = abs_pos[:, 0]
+    layers.write(slot_pos, (slice(None), slot), abs_pos[:, 0])
     kv_valid = slot_pos >= 0                                # (B, C)
     kv_positions = slot_pos.clamp(min=0)
 
     for l in range(cfg.num_layers):
         lp = layers.layer_params(params["layers"], l)
-        ck, cv = cache["k"][l], cache["v"][l]
         h = layers.norm_apply(cfg.norm, lp["attn_norm"], x)
         k, v = layers.project_kv(lp["attn"], acfg, h, positions)  # (B,1,kv,hd)
-        ck[:, slot] = k[:, 0]
-        cv[:, slot] = v[:, 0]
+        layers.write(cache["k"], (l, slice(None), slot), k[:, 0])
+        layers.write(cache["v"], (l, slice(None), slot), v[:, 0])
+        ck, cv = cache["k"][l], cache["v"][l]
         x = x + layers.attention(lp["attn"], acfg, h, positions,
                                  kv_override=(ck, cv),
                                  kv_positions=kv_positions,

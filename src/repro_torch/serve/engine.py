@@ -1,42 +1,115 @@
-"""Serving engine: batched prefill + decode steps with a KV cache, greedy
-sampling, and the host-side bookkeeping of a fixed decode batch.
+"""Serving engine: batched prefill + decode steps with sharded KV/state
+caches, greedy sampling, and the host-side bookkeeping of a fixed decode
+batch.
 
-The JAX package's ``serve_shardings`` places params and caches on a mesh;
-it comes with ``distributed/sharding.py`` (ROADMAP §1).  Here a loop runs
-on the one device that holds its params.
+``serve_shardings`` gives the layouts of params and caches on a mesh, and
+``place_for_serving`` puts the params there; the steps of
+``build_prefill_step`` and ``build_decode_step`` then run on that sharded
+state (each rank on its blocks, against the params' mesh).  Prefill builds
+the cache in ``cache_specs``' layout from the start, each rank allocating
+its own block (``models.layers.new_cache``), and a decode step writes the
+new token's k/v into each rank's own block, at the block's local slot
+(``models.layers.write``): DTensor has no sharding rule for an in-place
+write into a slice, and an out-of-place update would copy the whole cache
+every token.  ``ServeLoop`` runs on the one device that holds its params.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import use_mesh
 from repro_torch.models import registry
 
 PyTree = Any
 
 
+@contextlib.contextmanager
+def _grad_off(mesh):
+    """On a mesh, a serve step runs under ``no_grad``, even inside a
+    caller's ``inference_mode``, under which a view of a DTensor fails;
+    without one, as the caller runs it."""
+    if mesh is None:
+        yield
+        return
+    with torch.inference_mode(False), torch.no_grad():
+        yield
+
+
 def build_prefill_step(cfg: ArchConfig, max_len: int) -> Callable:
+    """prefill_step(params, batch) -> (last-token logits, cache).  On
+    sharded params the prompt runs on the params' mesh, and the cache it
+    builds is in ``serve_shardings``' cache layout for a decode batch of
+    the prompt's size and ``max_len``."""
     def prefill_step(params, batch):
-        return registry.prefill(params, cfg, batch, max_len)
+        mesh = sharding.mesh_of(params)
+        with _grad_off(mesh), use_mesh(mesh):
+            return registry.prefill(params, cfg, batch, max_len)
 
     return prefill_step
 
 
 def build_decode_step(cfg: ArchConfig) -> Callable:
-    """serve_step: one new token for every sequence in the batch."""
+    """serve_step: one new token for every sequence in the batch.  On
+    sharded params and cache the step runs on their mesh and writes the
+    cache in place, block by block; ``next_token`` comes back whole on
+    every rank."""
 
     def decode_step(params, batch):
-        logits, cache = registry.decode_step(params, cfg, batch["token"],
-                                             batch["cache"])
-        # greedy; ties take the first index, as jnp.argmax does
-        next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        mesh = sharding.mesh_of(params)
+        with _grad_off(mesh), use_mesh(mesh):
+            logits, cache = registry.decode_step(params, cfg, batch["token"],
+                                                 batch["cache"])
+            # greedy; ties take the first index, as jnp.argmax does
+            next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            if mesh is not None:
+                next_token = next_token.full_tensor()
         return {"logits": logits, "next_token": next_token, "cache": cache}
 
     return decode_step
+
+
+def serve_shardings(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                    mode: str = "decode"):
+    """(params, decode-batch) ``NamedSharding`` trees for the serve step,
+    and the params' and cache's meta stand-ins.
+
+    decode: 2D-TP weights (no FSDP all-gathers; see
+    ``sharding.serve_param_specs``).  prefill: training-style sharding
+    incl. FSDP: a long prefill amortizes the per-layer weight gathers, and
+    FSDP keeps the per-device resident weights smaller.  The decode batch
+    is ``{"token": ..., "cache": ...}``, the cache on ``cache_specs``.
+    """
+    params_s = registry.init_params(torch.Generator(), cfg, device="meta")
+    if mode == "decode":
+        p_specs = sharding.serve_param_specs(cfg, params_s, mesh)
+    else:
+        p_specs = sharding.param_specs(cfg, params_s, mesh)
+    cache_s = registry.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                  device="meta")
+    c_specs = sharding.cache_specs(cfg, cache_s, mesh, shape.global_batch)
+    tok_spec = sharding.batch_specs(
+        cfg, {"token": torch.empty((shape.global_batch, 1),
+                                   dtype=torch.int32, device="meta")},
+        mesh)["token"]
+    batch_specs = {"token": tok_spec, "cache": c_specs}
+    return (sharding.to_named(p_specs, mesh),
+            sharding.to_named(batch_specs, mesh), params_s, cache_s)
+
+
+def place_for_serving(cfg: ArchConfig, params: PyTree, mesh,
+                      shape: ShapeConfig, mode: str = "decode"):
+    """``params`` (whole on every rank, or DTensors) placed for ``mode`` on
+    ``mesh``: returns (params, the decode batch's ``NamedSharding``
+    tree)."""
+    p_sh, b_sh, _, _ = serve_shardings(cfg, shape, mesh, mode)
+    return sharding.place_tree(params, p_sh), b_sh
 
 
 @dataclasses.dataclass

@@ -1,9 +1,10 @@
 """Trees of tensors: nested dicts, lists, tuples and NamedTuples (an
 optimizer state), with ``None`` as an empty subtree, as ``jax.tree``
-treats them."""
+treats them.  ``is_leaf`` stops the walk at a node that it accepts, as
+``jax.tree``'s does (a partition spec is a tuple, yet a leaf)."""
 from __future__ import annotations
 
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Optional
 
 Tree = Any
 
@@ -14,27 +15,32 @@ def _rebuild(like, items: list):
             else type(like)(items))
 
 
-def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+def tree_map(fn: Callable, tree: Tree, *rest: Tree,
+             is_leaf: Optional[Callable] = None) -> Tree:
     """``fn`` over the leaves of ``tree`` and of the same-structured
     ``rest``; the structure follows ``tree``, and ``None`` stays ``None``."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return _rebuild(tree, [tree_map(fn, *items)
+        return _rebuild(tree, [tree_map(fn, *items, is_leaf=is_leaf)
                                for items in zip(tree, *rest)])
     return fn(tree, *rest)
 
 
-def leaves(tree: Tree) -> list:
+def leaves(tree: Tree, is_leaf: Optional[Callable] = None) -> list:
     """The leaves of ``tree`` in ``jax.tree.leaves`` order: dict values by
     sorted key, list and tuple items in order; ``None`` holds no leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [x for k in sorted(tree) for x in leaves(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [x for item in tree for x in leaves(item)]
+        return [x for item in tree for x in leaves(item, is_leaf)]
     return [] if tree is None else [tree]
 
 

@@ -317,19 +317,24 @@ def test_abstract_state_matches_the_reference():
         assert got == want
 
 
-def test_a_mesh_raises():
+def test_a_mesh_raises(monkeypatch):
+    """A mesh that is not a DeviceMesh, or one that cannot be built, raises:
+    nothing falls back to one device.  (The mesh path itself runs in
+    tests/test_torch_distributed_ranks.py, on spawned process groups.)"""
     kw = _kw("tinyllama-r")
     tcfg = _cfgs(kw)[1]
     settings = steps.TrainSettings()
-    with pytest.raises(NotImplementedError, match="distribution layer"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         steps.build_train_step(tcfg, settings, mesh="single")
-    with pytest.raises(NotImplementedError, match="distribution layer"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         steps.loss_fn(_params(kw)[1], tcfg, _batch("tinyllama-r")[1],
                       settings, mesh="single")
-    with pytest.raises(NotImplementedError, match="distribution layer"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         launch_train.run_training(tcfg, steps_n=1, global_batch=2,
                                   seq_len=8, mesh="single", device="cpu")
-    with pytest.raises(NotImplementedError, match="distribution layer"):
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="process group"):
         launch_train.main(["--device", "cpu", "--mesh", "single"])
 
 
