@@ -176,6 +176,26 @@ script then exits non-zero and never prints its result line):
    tokens equal, every cache leaf a DTensor on the card.  Step times and
    peak memory of both; the group is destroyed before the timing.
 
+11. The roofline and the dry run (after phase 10, before the timing).
+   ``python -m repro_torch.launch.dryrun --mesh single --device cuda`` in
+   one subprocess per cell of ``ROOFLINE_GROUPS`` (each its own fake
+   16x16 process group, apart from phase 10's NCCL group), all at once:
+   tinyllama-1.1b's train_4k, prefill_32k and decode_32k and mixtral-8x7b's
+   decode_32k must end ``ok`` and tinyllama-1.1b's long_500k ``skipped``;
+   each cell's per-rank FLOPs, bytes, collectives by kind, memory, the
+   three roofline terms, bottleneck and useful ratio (0 < it <= 1) are
+   printed.  Meanwhile one AdamW step of tinyllama-1.1b at full width in
+   bf16 (mesh=None, LM_TRAIN_BATCH x LM_TRAIN_SEQ, remat) runs on the
+   card, timed without the counter and once under
+   ``roofline.counting.count`` (the seven kernels' counters 0 before, read
+   after: all 0): its loss and new params and optimizer state equal the
+   uncounted step's bit for bit, its FLOPs equal the same step counted on
+   fake tensors in this process, and lm_train_bound's FLOPs less the down
+   projections' recompute and the norm scales exactly (the bound's gap
+   within ``ROOFLINE_BOUND_GAP``); the counted compute and memory terms at
+   the data sheet's peaks are printed beside the measured step, with the
+   card's name and power limit.  Records in ``chiprun_out/dryrun/``.
+
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -184,6 +204,7 @@ import dataclasses
 import importlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -386,10 +407,40 @@ LM_TRAIN_FP32_TOL = dict(rtol=1e-5, param=1e-5, near_zero=1e-3)
 MESH_ARCH = "tinyllama_1_1b"
 MESH_TRAIN_STEPS, MESH_TIMED = 2, 3
 MESH_PROMPT, MESH_DECODE = 32, 8
-# Published peaks of one H100 SXM at its 700 W limit (dense, no sparsity).
-PEAK_BYTES_PER_S = 3.35e12
+# Published peaks of one H100 SXM at its 700 W limit (dense, no sparsity):
+# bf16 and the memory rate from the port's roofline analysis, which holds
+# the card's peaks in one place; float32 outside the tensor cores here.
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.roofline.analysis import HBM_BW as PEAK_BYTES_PER_S  # noqa: E402
+from repro_torch.roofline.analysis import PEAK_FLOPS as PEAK_BF16_FLOPS  # noqa: E402
 PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
+# Phase 11, the roofline and the dry run: the cells that
+# ``python -m repro_torch.launch.dryrun --mesh single`` runs on fake
+# tensors over a fake 16x16 group (one subprocess a cell, each process its
+# own group), and the status each must end with; then one
+# AdamW step of tinyllama-1.1b (bf16, LM_TRAIN_BATCH x LM_TRAIN_SEQ) on the
+# card under roofline.counting.count.  Its counted FLOPs against
+# lm_train_bound's: the bound recomputes every product under remat and
+# counts the norm scales as products, where torch.utils.checkpoint stops
+# recomputing a layer after the last tensor its backward needs (the MLP's
+# down projection is not recomputed, as XLA drops it in the JAX package's
+# step) and a norm scale enters no product.  So the count is the bound
+# less 2 FLOPs a token for each down-projection weight and 8 for each norm
+# scale, exactly, and that gap, a share of the bound, stays within
+# ROOFLINE_BOUND_GAP (6.10% at tinyllama-1.1b's widths, on the card).
+ROOFLINE_CELLS = [("tinyllama_1_1b", "train_4k", "ok"),
+                  ("tinyllama_1_1b", "prefill_32k", "ok"),
+                  ("tinyllama_1_1b", "decode_32k", "ok"),
+                  ("tinyllama_1_1b", "long_500k", "skipped"),
+                  ("mixtral_8x7b", "decode_32k", "ok")]
+ROOFLINE_GROUPS = [["--arch", "tinyllama_1_1b", "--shape", "train_4k"],
+                   ["--arch", "tinyllama_1_1b", "--shape", "prefill_32k"],
+                   ["--arch", "tinyllama_1_1b", "--shape", "decode_32k"],
+                   ["--arch", "tinyllama_1_1b", "--shape", "long_500k"],
+                   ["--arch", "mixtral_8x7b", "--shape", "decode_32k"]]
+ROOFLINE_TIMEOUT_S = 600
+ROOFLINE_BOUND_GAP = 0.065
+ROOFLINE_TIMED = 3
 LINES = {"spike_gemm": "src/repro/kernels/spike_gemm.py:49",
          "spike_gemm_lif": "src/repro/kernels/spike_gemm_fused.py:59",
          "spike_conv": "src/repro/kernels/spike_conv.py:91",
@@ -1789,6 +1840,213 @@ def mesh_phase(torch, dev) -> dict:
     return out
 
 
+def start_dryruns(dev_type: str) -> list:
+    """Phase 11 (a): ``ROOFLINE_GROUPS`` through ``python -m
+    repro_torch.launch.dryrun --mesh single`` on ``dev_type``, each group
+    in its own process (its own fake group), all started at once; records
+    and logs go to ``chiprun_out/dryrun/``.  Returns the processes."""
+    out_dir = OUT.parent / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in list(out_dir.glob("*.json")) + list(out_dir.glob("*.log")):
+        old.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for i, group in enumerate(ROOFLINE_GROUPS):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *group,
+               "--mesh", "single", "--device", dev_type, "--out",
+               str(out_dir)]
+        with open(out_dir / f"group{i}.log", "w") as logf:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                          stdout=logf,
+                                          stderr=subprocess.STDOUT))
+    return procs
+
+
+def finish_dryruns(procs: list) -> dict:
+    """Wait for ``start_dryruns``' processes (``ROOFLINE_TIMEOUT_S`` in
+    all) and read their records: by (arch, shape)."""
+    out_dir = OUT.parent / "dryrun"
+    deadline = time.monotonic() + ROOFLINE_TIMEOUT_S
+    for i, proc in enumerate(procs):
+        proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        text = (out_dir / f"group{i}.log").read_text()
+        for line in text.splitlines():
+            if line.startswith(("[     ok]", "[skipped]", "[ failed]")):
+                log(f"  {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the dry run {ROOFLINE_GROUPS[i]} exited "
+                                 f"{proc.returncode}:\n{text[-3000:]}")
+    return {(r["arch"], r["shape"]): r for r in
+            (json.loads(p.read_text()) for p in sorted(
+                out_dir.glob("*__single.json")))}
+
+
+def counted_step(torch, dev) -> dict:
+    """Phase 11 (b): one AdamW step of tinyllama-1.1b at full width on the
+    card, timed without the counter and run once under
+    ``roofline.counting.count``: the counted step's loss and new state must
+    equal the uncounted one's bit for bit, its FLOPs those of the same step
+    counted on fake tensors, and lm_train_bound's less what the bound
+    counts that the step does not run.  The seven kernels' counters are
+    set to 0 before it and read after; it launches none of them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.roofline import analysis, counting
+    from repro_torch.train import steps
+    from repro_torch.tree import leaves, tree_map
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = registry.load_arch(MESH_ARCH)
+    settings = steps.TrainSettings(learning_rate=3e-4, remat=True,
+                                   z_loss=1e-4)
+    step = steps.build_train_step(cfg, settings)
+    params = registry.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+    opt = steps.make_optimizer(settings).init(params)
+    batch = pipeline.to_device(pipeline.synthetic_lm_batch(
+        pipeline.DataConfig(cfg.vocab, LM_TRAIN_SEQ, LM_TRAIN_BATCH, SEED),
+        0), dev)
+    ops.reset_launch_counts()
+    plain = step(params, opt, batch)                 # the first call
+    sync()
+    ms = []
+    for _ in range(ROOFLINE_TIMED):
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    counted, st = counting.count(step, params, opt, batch)
+    sync()
+    counted_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the counted step launched SNN kernels: "
+                             f"{launches}")
+    if not torch.equal(counted[2]["loss"], plain[2]["loss"]):
+        raise AssertionError(f"the counted step's loss "
+                             f"{float(counted[2]['loss'])} against "
+                             f"{float(plain[2]['loss'])}")
+    unequal = sum(not torch.equal(a, b) for a, b in
+                  zip(leaves(counted[:2]), leaves(plain[:2])))
+    if unequal:
+        raise AssertionError(f"{unequal} leaves of the counted step's new "
+                             f"params and optimizer state differ from the "
+                             f"uncounted step's")
+    loss = float(plain[2]["loss"])
+    del counted, plain
+
+    # the same step on fake tensors of the same shapes: no device work
+    def fake(tree):
+        return tree_map(lambda x: torch.empty(tuple(x.shape), dtype=x.dtype,
+                                              device=dev)
+                        if isinstance(x, torch.Tensor) else x, tree)
+
+    with FakeTensorMode():
+        _, fake_st = counting.count(step, fake(params), fake(opt),
+                                    fake(batch))
+    if fake_st.flops != st.flops:
+        raise AssertionError(f"the card's count {st.flops} against the fake "
+                             f"tensors' {fake_st.flops}")
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    bound = lm_train_bound(cfg, params, tokens, LM_TRAIN_BATCH)
+    w_down = params["layers"]["mlp"]["w_down"]["w"].numel()
+    scales = sum(t.numel() for path, t in tree_paths(params)
+                 if path[-1] == "scale")
+    explained = bound["flops"] - 2 * w_down * tokens - 8 * scales * tokens
+    gap = 1 - st.flops / bound["flops"]
+    if st.flops != explained or not 0 <= gap <= ROOFLINE_BOUND_GAP:
+        raise AssertionError(f"counted {st.flops} FLOPs against the bound's "
+                             f"{bound['flops']} ({gap:.4%} fewer), "
+                             f"{explained} explained")
+    del params, opt, batch
+    compute_s = st.flops / analysis.PEAK_FLOPS
+    memory_s = st.bytes_accessed / analysis.HBM_BW
+    step_ms = statistics.median(ms)
+    card = smi_line()
+    log(f"  {cfg.name} AdamW step ({LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, bf16, "
+        f"remat) under counting.count: loss and new state bit for bit the "
+        f"uncounted step's; {st.flops:.6g} FLOPs (the fake tensors' count "
+        f"equal; lm_train_bound's {bound['flops']:.6g} is {gap:.4%} more, "
+        f"all of it the down projections' recompute and the norm scales), "
+        f"{st.bytes_accessed:.6g} bytes, peak {st.peak_bytes / 2 ** 30:.2f} "
+        f"GiB counted; terms at the data sheet's peaks: compute "
+        f"{compute_s * 1e3:.3f} ms, memory {memory_s * 1e3:.3f} ms, against "
+        f"a measured {step_ms:.2f} ms (median of "
+        f"{[round(x, 2) for x in ms]}): {compute_s * 1e3 / step_ms:.1%} and "
+        f"{memory_s * 1e3 / step_ms:.1%} of it; card {card}")
+    return {"launches": launches, "card": card, "step": {
+        "arch": MESH_ARCH, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+        "loss": loss, "step_ms": ms, "step_ms_median": step_ms,
+        "counted_step_ms": counted_ms, "flops": st.flops,
+        "bytes_accessed": st.bytes_accessed, "dots": st.dots,
+        "peak_gib": st.peak_bytes / 2 ** 30,
+        "argument_gib": st.argument_bytes / 2 ** 30,
+        "bound_flops": bound["flops"], "bound_gap": gap,
+        "compute_ms": compute_s * 1e3, "memory_ms": memory_s * 1e3,
+        "compute_share": compute_s * 1e3 / step_ms,
+        "memory_share": memory_s * 1e3 / step_ms}}
+
+
+def roofline_phase(torch, dev) -> dict:
+    """Phase 11: the roofline and the dry run (see the module docstring):
+    the dry runs' processes run while the counted step runs here, and are
+    all stopped before this returns."""
+    from repro_torch.roofline import report as rreport
+
+    procs = start_dryruns(dev.type)
+    try:
+        out = counted_step(torch, dev)
+        recs = finish_dryruns(procs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["cells"] = {}
+    for arch, shape, want in ROOFLINE_CELLS:
+        rec = recs.get((arch, shape))
+        if rec is None or rec["status"] != want:
+            raise AssertionError(f"dry run {arch} x {shape}: "
+                                 f"{rec and rec['status']} (want {want}): "
+                                 f"{rec and rec.get('error')}")
+        if want != "ok":
+            log(f"  dry run {arch} x {shape} x 16x16: {rec['status']} "
+                f"({rec['reason']})")
+            out["cells"][f"{arch}__{shape}"] = {"status": rec["status"]}
+            continue
+        row = rreport.roofline_rows([rec], "single")[0]
+        if not 0 < row["useful_ratio"] <= 1:
+            raise AssertionError(f"dry run {arch} x {shape}: useful ratio "
+                                 f"{row['useful_ratio']}")
+        cell = {"status": "ok", "device_type": rec["device_type"],
+                "lower_s": rec["lower_s"], "compile_s": rec["compile_s"],
+                "flops": rec["cost"]["flops"],
+                "bytes_accessed": rec["cost"]["bytes_accessed"],
+                "collectives": rec["collectives"]["bytes_by_kind"],
+                "wire_bytes": rec["collectives"]["total_wire_bytes"],
+                "memory_gb": rec["memory"]["total_bytes_per_device"] / 1e9,
+                **{k: row[k] for k in ("compute_s", "memory_s",
+                                       "collective_s", "bottleneck",
+                                       "useful_ratio", "roofline_fraction")}}
+        out["cells"][f"{arch}__{shape}"] = cell
+        log(f"  dry run {arch} x {shape} x 16x16 ({rec['device_type']}, "
+            f"{rec['compile_s']} s): per rank {cell['flops']:.4g} FLOPs, "
+            f"{cell['bytes_accessed']:.4g} bytes, collectives "
+            f"{cell['collectives']}, memory {cell['memory_gb']:.2f} GB; "
+            f"compute {rreport.fmt_s(row['compute_s'])}, memory "
+            f"{rreport.fmt_s(row['memory_s'])}, collective "
+            f"{rreport.fmt_s(row['collective_s'])}: {row['bottleneck']}; "
+            f"useful ratio {row['useful_ratio']:.4f}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3088,6 +3346,12 @@ def main() -> int:
                "serves on a 1x1 DeviceMesh over NCCL"):
         report["mesh"] = mesh_phase(torch, dev)
 
+    # ---- 11. the roofline and the dry run ------------------------------
+    with Phase("the roofline and the dry run: tinyllama-1.1b and "
+               "mixtral-8x7b cells on a fake 16x16 group, a counted "
+               "tinyllama-1.1b step on the card"):
+        report["roofline"] = roofline_phase(torch, dev)
+
     # ---- 7. timing at the main path's shapes and traffic -----------------
     layers = dict(zip(names, zip(specs, [p for p in params if p])))
     per_layer = []
@@ -3423,6 +3687,7 @@ def main() -> int:
             "lm_serving_launches": report["lm"]["launches"][name],
             "lm_training_launches": report["lm_train"]["launches"][name],
             "mesh_path_launches": report["mesh"]["launches"][name],
+            "roofline_path_launches": report["roofline"]["launches"][name],
             "max_abs_err": errs[name],
             "normal_weights_rel_err": normal.get(name),
             "ms": sum(r["ms"] for r in rows),

@@ -34,6 +34,7 @@ reference's keys, so every rule reads the same path.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 from repro_torch.configs.base import ArchConfig
@@ -380,6 +381,16 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def splits(x, dim: int) -> int:
+    """The count of blocks dim ``dim`` of ``x`` is split into over its
+    mesh; 1 for anything but a DTensor."""
+    if not is_dtensor(x):
+        return 1
+    mesh = x.device_mesh
+    return math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                     if p.is_shard(dim))
+
+
 def whole(x):
     """A DTensor gathered whole on every rank (a collective: every rank
     calls it); anything else as it is."""
@@ -434,4 +445,4 @@ def place_tree(tree: PyTree, shardings: PyTree) -> PyTree:
 __all__ = ["FSDP_ARCHS", "NamedSharding", "P", "batch_specs", "cache_specs",
            "constrain", "fsdp_extend", "is_dtensor", "is_spec", "mesh_of",
            "opt_state_specs", "param_spec", "param_specs", "place",
-           "place_tree", "serve_param_specs", "to_named", "whole"]
+           "place_tree", "serve_param_specs", "splits", "to_named", "whole"]

@@ -79,29 +79,33 @@ def _placements(mesh, spec) -> tuple:
     return sharding.NamedSharding(mesh, sharding.P(*cand)).placements
 
 
-def on_blocks(fn: Callable, args: tuple, in_specs: tuple, out_spec: tuple,
-              out_shape: tuple, partial: Optional[str] = None):
+def on_blocks(fn: Callable, args: tuple, in_specs: tuple, out_spec,
+              out_shape, partial: Optional[str] = None):
     """``fn`` on each rank's blocks: the reference's ``shard_map`` for a
     function that is independent along the sharded dims (attention, per
-    batch row and head; experts, per expert).  On the ambient mesh each
-    tensor argument is put on its spec (a plain tensor counts as
-    replicated) and ``fn`` runs on the local tensors; its output is a
-    DTensor of global shape ``out_shape`` on ``out_spec``.  ``partial``
-    names a mesh axis over which the local outputs are partial sums (a
-    product whose contracted dim is split there): they are summed over it
-    (an all-reduce) into ``out_spec``.  A None spec passes its argument as
-    it is.  Without a mesh, or without a DTensor argument, this is
-    ``fn(*args)``."""
+    batch row and head; experts, per expert; the SSD scan, per batch row
+    and head).  On the ambient mesh each tensor argument is put on its spec
+    (a plain tensor counts as replicated) and ``fn`` runs on the local
+    tensors; its output is a DTensor of global shape ``out_shape`` on
+    ``out_spec`` (for an ``fn`` of several outputs, lists of one each,
+    split on the same mesh dims).  ``partial`` names a mesh axis over which
+    the local outputs are partial sums (a product whose contracted dim is
+    split there): they are summed over it (an all-reduce) into
+    ``out_spec``.  A None spec passes its argument as it is.  Without a
+    mesh, or without a DTensor argument, this is ``fn(*args)``."""
     from repro_torch.launch.mesh import current_mesh
     mesh = current_mesh()
     if mesh is None or not any(sharding.is_dtensor(a) for a in args):
         return fn(*args)
     from torch.distributed.tensor import DTensor, Partial
-    out_pl = _placements(mesh, out_spec)
-    local_pl = out_pl
+    many = isinstance(out_spec, list)
+    specs, shapes = (out_spec, out_shape) if many else ([out_spec],
+                                                        [out_shape])
+    out_pls = [_placements(mesh, spec) for spec in specs]
+    local_pls = out_pls
     if partial is not None and partial in mesh.mesh_dim_names:
         i = mesh.mesh_dim_names.index(partial)
-        local_pl = out_pl[:i] + (Partial(),) + out_pl[i + 1:]
+        local_pls = [pl[:i] + (Partial(),) + pl[i + 1:] for pl in out_pls]
     local = []
     for a, spec in zip(args, in_specs):
         if spec is not None and isinstance(a, torch.Tensor):
@@ -113,18 +117,24 @@ def on_blocks(fn: Callable, args: tuple, in_specs: tuple, out_spec: tuple,
             # alone: a partial sum over that dim
             grad_pl = tuple(Partial() if p.is_replicate() and not
                             o.is_replicate() else p
-                            for p, o in zip(pl, local_pl))
+                            for p, o in zip(pl, local_pls[0]))
             a = a.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
         local.append(a)
-    out = fn(*local).contiguous()       # the stride stated below
-    stride, n = [], 1
-    for d in reversed(out_shape):
-        stride.insert(0, n)
-        n *= d
-    out = DTensor.from_local(out, mesh, local_pl, run_check=False,
-                             shape=torch.Size(out_shape),
-                             stride=tuple(stride))
-    return out if local_pl == out_pl else out.redistribute(mesh, out_pl)
+    outs = fn(*local)
+    wrapped = []
+    for out, shape, local_pl, out_pl in zip(outs if many else [outs], shapes,
+                                            local_pls, out_pls):
+        out = out.contiguous()          # the stride stated below
+        stride, n = [], 1
+        for d in reversed(shape):
+            stride.insert(0, n)
+            n *= d
+        out = DTensor.from_local(out, mesh, local_pl, run_check=False,
+                                 shape=torch.Size(shape),
+                                 stride=tuple(stride))
+        wrapped.append(out if local_pl == out_pl
+                       else out.redistribute(mesh, out_pl))
+    return tuple(wrapped) if many else wrapped[0]
 
 
 def replicated(fn: Callable, *args):
@@ -399,9 +409,11 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
     D = x.shape[-1]
     assert sum(sections) == D // 2, (sections, D)
     freqs = rope_frequencies(D, theta, device=x.device)      # (D/2,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))
+    # each pair's section, from the host ints (a repeat_interleave by a
+    # tensor of counts has a data-dependent shape, which a fake tensor
+    # cannot give)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)
     pos = positions[sec_id]                                  # (D/2, B, S)
     ang = pos.permute(1, 2, 0).float() * freqs               # (B, S, D/2)
     return _rotate(x.float(), ang[:, :, None, :]).to(x.dtype)
@@ -613,24 +625,39 @@ def _attend(cfg: AttnConfig, q: torch.Tensor, k: torch.Tensor,
             outs.append(block(qc, k[:, lo:hi], v[:, lo:hi],
                                       bias_for(qa, lo, hi, chunk)))
         out = torch.cat(outs, dim=1)
-    return out.reshape(B, Sq, H * D)
+    return _merge_heads(out)
+
+
+def _heads_reshape(t: torch.Tensor, dim: int, n: int,
+                   shape: tuple) -> torch.Tensor:
+    """``t.reshape(shape)``, where dim ``dim`` of ``t`` holds ``n`` heads
+    (or ``n`` heads flattened with their head dim).  On a mesh, that dim
+    split over a count of ranks that ``n`` does not divide is gathered
+    first (an explicit redistribute), and so is the gradient that comes
+    back (an identity redistribute after the reshape): DTensor's view
+    rules cannot flatten or unflatten an uneven split (arctic-480b's 56
+    heads on 16 ranks), or put the whole split on the heads dim and leave
+    some ranks an empty block (2 kv heads flattened on 4 ranks), where
+    XLA's reshape splits the dim as it is."""
+    if n % sharding.splits(t, dim) == 0:
+        return t.reshape(shape)
+    from torch.distributed.tensor import Replicate
+    mesh = t.device_mesh
+    t = t.redistribute(mesh, [Replicate() if q.is_shard(dim) else q
+                              for q in t.placements])
+    out = t.reshape(shape)
+    return out.redistribute(mesh, out.placements)
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., n, hd) -> (..., n * hd)."""
+    return _heads_reshape(t, t.ndim - 2, t.shape[-2],
+                          (*t.shape[:-2], t.shape[-2] * t.shape[-1]))
 
 
 def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    """(..., n * hd) -> (..., n, hd).  On a mesh, a flattened head dim
-    split over a count of ranks that ``n`` heads do not fill evenly is
-    gathered first (an explicit redistribute): DTensor's view rule puts
-    the split on the heads dim alone and leaves some ranks an empty
-    block, where XLA splits the flattened dim as it is."""
-    if sharding.is_dtensor(t):
-        from torch.distributed.tensor import Replicate
-        last, pl = t.ndim - 1, t.placements
-        split = math.prod(t.device_mesh.size(i) for i, q in enumerate(pl)
-                          if q.is_shard(last))
-        if n % split:
-            t = t.redistribute(t.device_mesh, [
-                Replicate() if q.is_shard(last) else q for q in pl])
-    return t.reshape(*t.shape[:-1], n, hd)
+    """(..., n * hd) -> (..., n, hd)."""
+    return _heads_reshape(t, t.ndim - 1, n, (*t.shape[:-1], n, hd))
 
 
 def attention(p: PyTree, cfg: AttnConfig, x: torch.Tensor,

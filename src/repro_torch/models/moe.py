@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 
 PyTree = Any
@@ -322,13 +323,20 @@ def moe_apply(p: PyTree, cfg: MoEConfig, x: torch.Tensor,
         outs, auxs = group_fn(p, cfg, groups, capacity)
         aux_total = torch.sum(auxs)
     elif group_mode == "scan":
+        # one group of each rank's block a step: on a mesh the groups' dim
+        # may be split over the batch axes, and a split dim cannot be
+        # iterated; the k blocks' groups are interleaved so that step i
+        # takes group i of every block
+        k = sharding.splits(groups, 0)
+        k = k if n_groups % k == 0 else 1
+        steps = groups.reshape(k, n_groups // k, g, d).transpose(0, 1)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         outs = []
-        for xg in groups:
-            out, aux = group_fn(p, cfg, xg, capacity)
-            aux_total = aux_total + aux
+        for xs in steps:
+            out, aux = group_fn(p, cfg, xs, capacity)
+            aux_total = aux_total + aux.sum()
             outs.append(out)
-        outs = torch.stack(outs)
+        outs = torch.stack(outs).transpose(0, 1).reshape(n_groups, g, d)
     else:
         raise ValueError(f"unknown group_mode {group_mode!r}")
     out = outs.reshape(n_groups * g, d)[:T].reshape(B, S, d)

@@ -81,11 +81,20 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _causal_conv(xBC: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Width-W causal depthwise conv over (B, S, C) channels."""
-    W = w.shape[0]
-    pad = F.pad(xBC, (0, 0, W - 1, 0))
-    out = sum(pad[:, i:i + xBC.shape[1], :] * w[i] for i in range(W))
-    return F.silu(out + b)
+    """Width-W causal depthwise conv over (B, S, C) channels.  On a mesh
+    each rank convolves its batch rows and channels (``layers.on_blocks``:
+    the conv is independent along both), since torch 2.11's DTensor fails
+    to plan the redistribution of the shifted products on a 16x16 mesh."""
+    def conv(x, w, b):
+        W = w.shape[0]
+        pad = F.pad(x, (0, 0, W - 1, 0))
+        out = sum(pad[:, i:i + x.shape[1], :] * w[i] for i in range(W))
+        return F.silu(out + b)
+
+    return layers.on_blocks(conv, (xBC, w, b),
+                            (("batch", None, "model"), (None, "model"),
+                             ("model",)),
+                            ("batch", None, "model"), tuple(xBC.shape))
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -180,7 +189,19 @@ def block_forward(lp: PyTree, cfg: ArchConfig, x_in: torch.Tensor,
     xh = xm.reshape(Bsz, S, d["n_heads"], d["P"])
     dt = _softplus(dt_raw.float() + lp["dt_bias"]).to(x_in.dtype)
     A = -torch.exp(lp["A_log"])
-    y, h_final = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm.chunk, h0)
+    # on a mesh each rank scans its batch rows and heads: the scan is
+    # independent along both, and torch 2.11's DTensor cannot flatten the
+    # einsums' sharded head dims
+    heads = ("batch", None, "model", None)
+    rows = ("batch", None, None)
+    y, h_final = layers.on_blocks(
+        lambda x, dt, A, Bm, Cm, h0: ssd_chunked(x, dt, A, Bm, Cm,
+                                                 cfg.ssm.chunk, h0),
+        (xh, dt, A, Bm, Cm, h0),
+        (heads, ("batch", None, "model"), ("model",), rows, rows,
+         ("batch", "model", None, None)),
+        [heads, ("batch", "model", None, None)],
+        [tuple(xh.shape), (Bsz, d["n_heads"], d["N"], d["P"])])
     y = y + xh * lp["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(Bsz, S, d["d_inner"])
     y = layers.rmsnorm(lp["gate_norm"], y * F.silu(z))

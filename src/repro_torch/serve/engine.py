@@ -66,10 +66,12 @@ def build_decode_step(cfg: ArchConfig) -> Callable:
         with _grad_off(mesh), use_mesh(mesh):
             logits, cache = registry.decode_step(params, cfg, batch["token"],
                                                  batch["cache"])
-            # greedy; ties take the first index, as jnp.argmax does
-            next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-            if mesh is not None:
-                next_token = next_token.full_tensor()
+            # greedy; ties take the first index, as jnp.argmax does.  On a
+            # mesh every rank takes it from the gathered logits: 2D-TP
+            # splits the vocab over two mesh dims, which DTensor's argmax
+            # cannot reduce when the batch is whole (a batch of one)
+            next_token = torch.argmax(sharding.whole(logits[:, -1]),
+                                      dim=-1).to(torch.int32)
         return {"logits": logits, "next_token": next_token, "cache": cache}
 
     return decode_step

@@ -48,13 +48,19 @@ RANK_TIMEOUT_S = 240
 #: experts, whose ff dims split over "model"), the vision frontend's
 #: (3, B, S) positions, SSM, hybrid, encoder-decoder.  mixtral-r and
 #: qwen2vl-r train under their full models' names, which are FSDP
-#: architectures, so their params shard over "data" too.  {case: (config,
-#: microbatches, the name on the mesh, MoE fields changed)}
+#: architectures, so their params shard over "data" too.  arctic-r-3h
+#: has 3 heads and 1 kv head on the 2 "model" ranks: a heads dim that its
+#: ranks do not split evenly (arctic-480b's 56 heads on 16), gathered
+#: around each reshape into and out of heads.  {case: (config,
+#: microbatches, the name on the mesh, fields changed: MoE fields under
+#: "moe")}
 TRAIN = {"tinyllama-r": ("tinyllama-r", 1, "tinyllama-r", None),
          "mixtral-r": ("mixtral-r", 2, "mixtral-8x7b", None),
          "mixtral-r-3e": ("mixtral-r", 1, "mixtral-8x7b",
-                          {"num_experts": 3}),
+                          {"moe": {"num_experts": 3}}),
          "arctic-r": ("arctic-r", 1, "arctic-r", None),
+         "arctic-r-3h": ("arctic-r", 1, "arctic-r",
+                         {"n_heads": 3, "n_kv": 1}),
          "qwen2vl-r": ("qwen2vl-r", 1, "qwen2-vl-72b", None),
          "mamba2-r": ("mamba2-r", 1, "mamba2-r", None),
          "zamba2-r": ("zamba2-r", 1, "zamba2-r", None),
@@ -62,9 +68,11 @@ TRAIN = {"tinyllama-r": ("tinyllama-r", 1, "tinyllama-r", None),
 
 
 def _train_kw(case: str) -> dict:
-    config, _, _, moe = TRAIN[case]
-    kw = ARCH_KW[config]
-    return dict(kw, moe=dict(kw["moe"], **moe)) if moe else kw
+    config, _, _, changed = TRAIN[case]
+    kw = dict(ARCH_KW[config], **(changed or {}))
+    if changed and "moe" in changed:
+        kw["moe"] = dict(ARCH_KW[config]["moe"], **changed["moe"])
+    return kw
 
 
 def start(task: str, out: str, world: int = WORLD) -> list:

@@ -68,6 +68,24 @@ def test_moe_apply(group_mode, dispatch, cap):
     _close(taux, jaux)
 
 
+@pytest.mark.parametrize("dispatch", ["gather", "einsum"])
+def test_scan_steps_through_each_blocks_groups(monkeypatch, dispatch):
+    """On a mesh whose batch axes split the groups' dim into k blocks,
+    ``"scan"`` takes group i of every block at step i.  With k = 2 forced
+    on plain tensors (40 tokens in 4 groups of 10) the output and the aux
+    loss equal k = 1's bit for bit: the groups are independent, and only
+    their order of visit changes."""
+    kw = dict(num_experts=4, top_k=2, capacity_factor=0.5,
+              dispatch=dispatch)
+    tp = _both(_moe_params(6, 4, False))[1]
+    x = torch.from_numpy(_rand(np.random.default_rng(7), 2, 20, D))
+    want = moe.moe_apply(tp, MoEConfig(**kw), x, group_size=10)
+    monkeypatch.setattr(moe.sharding, "splits", lambda t, dim: 2)
+    got = moe.moe_apply(tp, MoEConfig(**kw), x, group_size=10)
+    assert torch.equal(got[0], want[0])
+    _close(got[1], want[1])
+
+
 def test_group_modes_and_dispatch_flavours_agree():
     """The four ways to route the same tokens give one output (to fp32
     rounding): a group mode changes only the batching, a dispatch flavour
