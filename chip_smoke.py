@@ -2138,14 +2138,15 @@ def main() -> int:
         density (its own weights, where ``make`` ignores the density)."""
         return torch.stack([make(d) for d in CELL_DENSITIES])
 
-    def one_launch(module, counter, call, what):
-        """``call()``, which must launch its kernel once for the slab."""
-        before = getattr(module, counter)
+    def one_launch(kernel, call, what):
+        """``call()``, which must launch ``kernel`` once for the slab."""
+        before = ops.launch_counts()[kernel]
         got = call()
         torch.cuda.synchronize()
-        if getattr(module, counter) != before + 1:
-            raise AssertionError(f"{what}: {getattr(module, counter) - before}"
-                                 f" launches for one slab, expected 1")
+        launched = ops.launch_counts()[kernel] - before
+        if launched != 1:
+            raise AssertionError(f"{what}: {launched} launches for one slab,"
+                                 " expected 1")
         return got
 
     def hold_cells(name, got, solo, plain, what):
@@ -2219,14 +2220,14 @@ def main() -> int:
             s0 = spikes((CELLS, m, n), 0.3)
             s = cell_stack(lambda d: spikes((m, k), d))
             what = f"{CELLS} cells of S{(m, k)} W{(k, n)}"
-            got = one_launch(gemm_kernel, "launches",
+            got = one_launch("spike_gemm",
                              lambda: ops.spike_gemm(s, w), what)
             hold_cells("spike_gemm", [got], lambda c: [
                 ops.spike_gemm(s[c], w[c])], lambda c: [
                 ref.spike_gemm_ref(s[c], w[c])], what)
             for reset in ("subtract", "zero"):
                 kw = dict(beta=0.95, threshold=1.0, reset_mechanism=reset)
-                got = one_launch(fused_kernel, "launches",
+                got = one_launch("spike_gemm_lif",
                                  lambda: ops.spike_gemm_lif_step(
                                      s, w, b, u0, s0, **kw), what)
                 hold_cells("spike_gemm_lif", got, lambda c: list(
@@ -2242,7 +2243,7 @@ def main() -> int:
                 / math.sqrt(k * k * shape[-1]) * 2))
             x = cell_stack(lambda d: spikes(shape, d))
             what = f"{CELLS} cells of x{shape} {k}x{k}x{feats} {conv}"
-            got = one_launch(conv_kernel, "launches",
+            got = one_launch("spike_conv",
                              lambda: ops.spike_conv(x, w, **conv), what)
             hold_cells("spike_conv", [got], lambda c: [
                 ops.spike_conv(x[c], w[c], **conv)], lambda c: [
@@ -2395,9 +2396,9 @@ def main() -> int:
             s = cell_stack(lambda d: spikes((m, k), d))
             g = cell_stack(lambda d: cotangent((m, n), 1.0 - d))
             what = f"{CELLS} cells of S{(m, k)} g{(m, n)} W{(k, n)}"
-            dw = one_launch(bwd_kernel, "dw_launches",
+            dw = one_launch("spike_gemm_dw",
                             lambda: ops.spike_gemm_bwd_dw(s, g), what)
-            ds = one_launch(bwd_kernel, "ds_launches",
+            ds = one_launch("spike_gemm_ds",
                             lambda: ops.spike_gemm_bwd_ds(g, w), what)
             hold_cells("spike_gemm_dw", [dw], lambda c: [
                 ops.spike_gemm_bwd_dw(s[c], g[c])], lambda c: [
@@ -2419,10 +2420,10 @@ def main() -> int:
                                                1.0 - d))
             xs = (CELLS,) + tuple(shape)
             what = f"{CELLS} cells of x{shape} {k}x{k}x{feats} {conv}"
-            dw = one_launch(bwd_kernel, "dw_launches",
+            dw = one_launch("spike_gemm_dw",
                             lambda: ops.spike_conv_bwd_dw(
                                 x, g, kernel_size=(k, k), **conv), what)
-            ds = one_launch(bwd_kernel, "ds_launches",
+            ds = one_launch("spike_gemm_ds",
                             lambda: ops.spike_conv_bwd_ds(g, w, xs, **conv),
                             what)
             hold_cells("spike_gemm_dw", [dw], lambda c: [

@@ -24,16 +24,22 @@ each; the OR-pool, the LIF update and the bias add are elementwise over
 its solo shape; and a bias gradient is reduced per cell over the solo
 shape.  So each cell's spikes and gradients equal its solo run's bit for
 bit.
+
+Spans (``repro_torch.spans``).  ``step`` runs each layer in a span named
+by ``SNNConfig.span_names`` (``fwd.conv0``, ``fwd.pool1``, ...), and the
+OR-pool's backward in ``bwd.pool``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import Optional, Sequence, Union
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core.lif import LIFParams, lif_step
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import ops as kernel_ops
@@ -112,6 +118,14 @@ class SNNConfig:
 
     def spiking_layers(self) -> list[LayerSpec]:
         return [l for l in self.layers if isinstance(l, (Dense, Conv))]
+
+    @functools.cached_property
+    def span_names(self) -> tuple[str, ...]:
+        """The name of each layer's span in ``step``: ``fwd.`` + its kind
+        + its index (``fwd.conv0``, ``fwd.pool1``, ...), made once."""
+        kinds = {Dense: "dense", Conv: "conv", MaxPool: "pool"}
+        return tuple(f"fwd.{kinds[type(spec)]}{i}"
+                     for i, spec in enumerate(self.layers))
 
 
 def _out_shape(spec: LayerSpec, in_shape: tuple[int, ...]) -> tuple[int, ...]:
@@ -298,6 +312,7 @@ class _OrPool(torch.autograd.Function):
         return out
 
     @staticmethod
+    @spans.spanned("bwd.pool")
     def backward(ctx, g):
         (first,) = ctx.saved_tensors
         (b, h, w, c), window = ctx.geometry
@@ -358,18 +373,21 @@ def step(cfg: SNNConfig, params: Params, states: list, s_in: torch.Tensor,
     perms = layer_perms or (None,) * len(cfg.layers)
     new_states, spikes = [], []
     x = s_in
-    for spec, p, st, perm in zip(cfg.layers, params, states, perms):
-        if isinstance(spec, Dense) and matmul_backend == "spike_gemm_fused":
-            u, s = _fused_dense_step(spec, p, x, st, perm, cells)
-        elif isinstance(spec, (Dense, Conv)):
-            cur = _layer_current(spec, p, x, matmul_backend, perm, cells)
-            u, s = lif_step(st[0], st[1], cur, spec.lif)
-        elif isinstance(spec, MaxPool):
-            x = _or_pool(x, spec.window)
-            new_states.append(None)
-            continue
-        else:
-            raise TypeError(spec)
+    fused = matmul_backend == "spike_gemm_fused"
+    for name, spec, p, st, perm in zip(cfg.span_names, cfg.layers, params,
+                                       states, perms):
+        with spans.span(name):
+            if isinstance(spec, Dense) and fused:
+                u, s = _fused_dense_step(spec, p, x, st, perm, cells)
+            elif isinstance(spec, (Dense, Conv)):
+                cur = _layer_current(spec, p, x, matmul_backend, perm, cells)
+                u, s = lif_step(st[0], st[1], cur, spec.lif)
+            elif isinstance(spec, MaxPool):
+                x = _or_pool(x, spec.window)
+                new_states.append(None)
+                continue
+            else:
+                raise TypeError(spec)
         new_states.append((u, s))
         spikes.append(s)
         x = s

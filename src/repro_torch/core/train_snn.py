@@ -30,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import optim
+from repro_torch import optim, spans
 from repro_torch.core import encoding, snn
 from repro_torch.core.accelerator import cycle_model
 from repro_torch.data import synthetic
@@ -99,20 +99,27 @@ def stacked_loss_fn(cfg: snn.SNNConfig, params: snn.Params, generators,
 
 def _step_on(loss_of, tx: optim.GradientTransform):
     """A train step on ``loss_of(params, generator(s), x, y)``, a scalar
-    loss or a slab's (C,) losses, whose sum is differentiated."""
+    loss or a slab's (C,) losses, whose sum is differentiated.  It runs in
+    a ``step`` span (``repro_torch.spans``) whose children are
+    ``forward``, ``backward`` and ``optimizer``."""
 
     def train_step(params, opt_state, generator, x, y):
-        leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
-                  for p in params]
-        loss = loss_of(leaves, generator, x, y)
-        flat = [v for p in leaves for v in p.values()]
-        grads_flat = iter(torch.autograd.grad(
-            loss if loss.dim() == 0 else loss.sum(), flat))
-        grads = [{k: next(grads_flat) for k in p} for p in leaves]
-        with torch.no_grad():
-            updates, opt_state = tx.update(grads, opt_state, params)
-            params = optim.apply_updates(params, updates)
-        return params, opt_state, loss.detach()
+        with spans.span(spans.STEP):
+            leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+                      for p in params]
+            with spans.span("forward"):
+                loss = loss_of(leaves, generator, x, y)
+            flat = [v for p in leaves for v in p.values()]
+            with spans.span("backward"):
+                grads_flat = iter(torch.autograd.grad(
+                    loss if loss.dim() == 0 else loss.sum(), flat))
+            grads = [{k: next(grads_flat) for k in p} for p in leaves]
+            with torch.no_grad(), spans.span("optimizer"):
+                updates, opt_state = tx.update(grads, opt_state, params)
+                params = optim.apply_updates(params, updates)
+            # the graph, held by ``loss``, is freed here, inside the step
+            loss = loss.detach()
+        return params, opt_state, loss
 
     return train_step
 

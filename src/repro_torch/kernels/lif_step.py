@@ -13,11 +13,10 @@ import functools
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import build
 from repro_torch.kernels.spike_gemm_fused import RESETS
 
-#: Kernel launches since the last reset (``ops.reset_launch_counts``).
-launches = 0
 #: dtype -> the C entry point that takes it.
 ENTRIES = {torch.float32: "lif_step_f32_launch",
            torch.bfloat16: "lif_step_bf16_launch"}
@@ -41,7 +40,6 @@ def lif_step_cuda(u_prev: torch.Tensor, s_prev: torch.Tensor,
     kernel does not take (device, dtype, shape, contiguity).  The kernel
     rounds ``beta`` and ``threshold`` to the operands' dtype first, as the
     plain version does."""
-    global launches
     if reset_mechanism not in RESETS:
         raise ValueError(f"unknown reset mechanism {reset_mechanism!r}")
     dev = build.cuda_device(u_prev, "lif_step")
@@ -65,5 +63,5 @@ def lif_step_cuda(u_prev: torch.Tensor, s_prev: torch.Tensor,
                                  int(reset_mechanism == "subtract"),
                                  vectorized, build.stream_ptr(dev))
     build.check_launch(err, "lif_step")
-    launches += 1
+    spans.count("launch.lif_step")
     return u, s

@@ -33,12 +33,18 @@ call's bit for bit; on the CPU the plain version runs per cell on the solo
 shape.  Flags are per cell, (C, ...): a tile never mixes two cells.  The
 bias gradient of the fused step is reduced per cell over the solo shape
 (``cell_sum_to``), as autograd reduces a solo one.
+
+Counting.  Each binding module counts its kernel's launches in
+``repro_torch.spans`` (``launch.<kernel>``, one counter per entry of
+``KERNELS``); ``launch_counts`` reads them.  The Functions' backwards run
+in ``bwd.dense`` and ``bwd.conv`` spans.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.kernels import lif_step as lif_kernel
 from repro_torch.kernels import penc_compact as penc_kernel
 from repro_torch.kernels import ref
@@ -49,24 +55,20 @@ from repro_torch.kernels import spike_gemm_fused as fused_kernel
 from repro_torch.kernels.build import TILE, cell_lead, tile_grid
 from repro_torch.kernels.spike_conv import conv_out_size
 
-#: Kernel name -> (its binding module, the name of its launch counter).
-KERNELS = {"spike_gemm": (gemm_kernel, "launches"),
-           "spike_gemm_lif": (fused_kernel, "launches"),
-           "spike_conv": (conv_kernel, "launches"),
-           "spike_gemm_dw": (bwd_kernel, "dw_launches"),
-           "spike_gemm_ds": (bwd_kernel, "ds_launches"),
-           "lif_step": (lif_kernel, "launches"),
-           "penc_compact": (penc_kernel, "launches")}
+#: The hand-written kernels, each with its counter ``launch.<name>`` in
+#: ``spans``.
+KERNELS = ("spike_gemm", "spike_gemm_lif", "spike_conv", "spike_gemm_dw",
+           "spike_gemm_ds", "lif_step", "penc_compact")
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last ``reset_launch_counts``."""
-    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
+    counted = spans.counts()
+    return {name: counted.get(f"launch.{name}", 0) for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for mod, attr in KERNELS.values():
-        setattr(mod, attr, 0)
+    spans.reset_counts("launch.")
 
 
 def _pad_to(x: torch.Tensor, mults: tuple[int, ...]) -> torch.Tensor:
@@ -334,6 +336,7 @@ class _SpikeGemmTrain(torch.autograd.Function):
         return spike_gemm(spikes, weights, flags=flags)
 
     @staticmethod
+    @spans.spanned("bwd.dense")
     def backward(ctx, g):
         spikes, weights, flags = ctx.saved_tensors
         return _gemm_cotangents(ctx.needs_input_grad, g, spikes, weights,
@@ -355,6 +358,7 @@ class _SpikeConvTrain(torch.autograd.Function):
         return spike_conv(s_in, weights, stride=stride, padding=padding)
 
     @staticmethod
+    @spans.spanned("bwd.conv")
     def backward(ctx, g):
         s_in, weights = ctx.saved_tensors
         stride, padding = ctx.conv
@@ -404,6 +408,7 @@ class _SpikeGemmLifStep(torch.autograd.Function):
         return u, s
 
     @staticmethod
+    @spans.spanned("bwd.dense")
     def backward(ctx, gu, gs):
         spikes, weights, u_prev, s_prev, u, flags = ctx.saved_tensors
         beta, threshold, slope, reset_mechanism = ctx.lif

@@ -19,11 +19,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import build
-
-#: Kernel launches since the last reset (``ops.reset_launch_counts``): one
-#: a call, whether it runs one kernel or the two passes.
-launches = 0
 
 _INT_MAX = 2 ** 31 - 1
 #: Entries of a round of the two-pass kernels: 256 threads, each with 4
@@ -106,7 +103,6 @@ def penc_compact_cuda(spikes: torch.Tensor, capacity: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel(s) on the current stream; raises on any operand
     the kernel does not take (device, dtype, shape, contiguity, sizes)."""
-    global launches
     dev = build.cuda_device(spikes, "penc_compact")
     if spikes.dim() != 2:
         raise ValueError(f"penc_compact takes (B, N) spikes, got shape "
@@ -127,5 +123,5 @@ def penc_compact_cuda(spikes: torch.Tensor, capacity: int
                    plan.tile, plan.tiles, plan.pad, vectorized,
                    build.stream_ptr(dev))
     build.check_launch(err, "penc_compact")
-    launches += 1
+    spans.count("launch.penc_compact")   # one a call, one pass or two
     return idx, counts

@@ -25,10 +25,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.kernels import build
-
-#: Kernel launches since the last reset (``ops.reset_launch_counts``).
-launches = 0
 
 #: The output pixels a block of each conv kernel may own, largest first,
 #: and how many of its blocks should fit in one SM's shared memory: a tile
@@ -188,7 +186,6 @@ def spike_conv_cuda(s_in: torch.Tensor, weights: torch.Tensor, stride: int,
     directly; every nonzero input is an event.  Both operands may carry a
     leading cell axis (a slab of C convolutions, one launch).  Launches on
     the current stream; raises on any operand the kernel does not take."""
-    global launches
     dev = build.cuda_device(s_in, "spike_conv")
     lead = build.cell_lead(s_in, 4, "spike_conv")
     if weights.dim() != 4 + len(lead):
@@ -209,5 +206,5 @@ def spike_conv_cuda(s_in: torch.Tensor, weights: torch.Tensor, stride: int,
                    lead[0] if lead else 1, *geo,
                    int(uses_strips(kw, stride)), build.stream_ptr(dev))
     build.check_launch(err, "spike_conv")
-    launches += 1
+    spans.count("launch.spike_conv")
     return out

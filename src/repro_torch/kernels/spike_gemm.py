@@ -24,10 +24,8 @@ import functools
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import build
-
-#: Kernel launches since the last reset (``ops.reset_launch_counts``).
-launches = 0
 
 #: The block tile of the split kernels (``dense_split.cuh``: ``kRows``,
 #: ``kCols``) and the depth of a slab of K, one flag column.
@@ -83,7 +81,6 @@ def spike_gemm_cuda(spikes: torch.Tensor, weights: torch.Tensor,
     weights, or a slab of C of each with a leading cell axis (and
     ``(C, ...)`` flags).  Raises on any operand the kernel does not take
     (device, dtype, shape, contiguity)."""
-    global launches
     dev = build.cuda_device(spikes, "spike_gemm")
     lead = build.cell_lead(spikes, 2, "spike_gemm")
     m, k = spikes.shape[-2:]
@@ -100,5 +97,5 @@ def spike_gemm_cuda(spikes: torch.Tensor, weights: torch.Tensor,
                    out.data_ptr(), lead[0] if lead else 1, m, n, k, splits,
                    per, build.stream_ptr(dev))
     build.check_launch(err, "spike_gemm")
-    launches += 1
+    spans.count("launch.spike_gemm")
     return out

@@ -31,12 +31,8 @@ import functools
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import build, spike_conv
-
-#: Kernel launches since the last reset (``ops.reset_launch_counts``), one
-#: counter per kernel.
-dw_launches = 0
-ds_launches = 0
 
 #: The H100's SMs: a constant, not the card's own number, so that every
 #: plan below depends on the shapes alone.
@@ -202,7 +198,6 @@ def spike_gemm_dw_cuda(spikes: torch.Tensor, g: torch.Tensor
     the nonzero spikes; or for a slab of C of each, (C, K, N) out.  Launches
     on the current stream; raises on any operand the kernel does not
     take."""
-    global dw_launches
     dev = build.cuda_device(spikes, "spike_gemm_dw")
     lead = _matrices("spike_gemm_dw", spikes, g)
     m, k = spikes.shape[-2:]
@@ -219,7 +214,7 @@ def spike_gemm_dw_cuda(spikes: torch.Tensor, g: torch.Tensor
                       _cells(lead), m, n, k, f4, int(vec), blocks,
                       build.stream_ptr(dev))
     build.check_launch(err, "spike_gemm_dw")
-    dw_launches += 1
+    spans.count("launch.spike_gemm_dw")
     return out
 
 
@@ -229,7 +224,6 @@ def spike_conv_dw_cuda(s_in: torch.Tensor, g: torch.Tensor, kh: int,
     spikes and (B, OH, OW, F) fp32 cotangent; or of a slab of C of them,
     (C, KH, KW, C, F), each cell split as the solo shape.  Launches on the
     current stream; raises on any operand the kernel does not take."""
-    global dw_launches
     dev = build.cuda_device(s_in, "spike_conv_dw")
     lead = build.cell_lead(s_in, 4, "spike_conv_dw")
     if g.dim() != 4 + len(lead):
@@ -257,7 +251,7 @@ def spike_conv_dw_cuda(s_in: torch.Tensor, g: torch.Tensor, kh: int,
                            out.data_ptr(), _cells(lead), *geo[:-1], warps,
                            splits, per, geo[-1], build.stream_ptr(dev))
     build.check_launch(err, "spike_conv_dw")
-    dw_launches += 1
+    spans.count("launch.spike_gemm_dw")
     return out
 
 
@@ -267,7 +261,6 @@ def spike_gemm_ds_cuda(g: torch.Tensor, weights: torch.Tensor
     skipping the all-zero chunks of g; or for a slab of C of each, each
     cell gated on its own cotangent.  Launches on the current stream;
     raises on any operand the kernel does not take."""
-    global ds_launches
     dev = build.cuda_device(g, "spike_gemm_ds")
     lead = _matrices("spike_gemm_ds", g, weights)
     m, n = g.shape[-2:]
@@ -284,7 +277,7 @@ def spike_gemm_ds_cuda(g: torch.Tensor, weights: torch.Tensor
                       _cells(lead), m, k, n, int(large), int(vec),
                       build.stream_ptr(dev))
     build.check_launch(err, "spike_gemm_ds")
-    ds_launches += 1
+    spans.count("launch.spike_gemm_ds")
     return out
 
 
@@ -296,7 +289,6 @@ def spike_conv_ds_cuda(g: torch.Tensor, weights: torch.Tensor,
     no patch-space cotangent and no col2im; or of a slab of C of them, each
     operand and ``x_shape`` with a leading cell axis.  Launches on the
     current stream; raises on any operand the kernel does not take."""
-    global ds_launches
     dev = build.cuda_device(g, "spike_conv_ds")
     x_shape = tuple(int(s) for s in x_shape)
     lead = build.cell_lead(g, 4, "spike_conv_ds")
@@ -323,5 +315,5 @@ def spike_conv_ds_cuda(g: torch.Tensor, weights: torch.Tensor,
     err = _conv_ds_entry()(g.data_ptr(), weights.data_ptr(), out.data_ptr(),
                            _cells(lead), *plan, build.stream_ptr(dev))
     build.check_launch(err, "spike_conv_ds")
-    ds_launches += 1
+    spans.count("launch.spike_gemm_ds")
     return out

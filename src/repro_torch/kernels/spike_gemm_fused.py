@@ -16,11 +16,9 @@ import functools
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import build
 from repro_torch.kernels.spike_gemm import split_plan, workspace
-
-#: Kernel launches since the last reset (``ops.reset_launch_counts``).
-launches = 0
 
 RESETS = ("subtract", "zero")
 
@@ -45,7 +43,6 @@ def spike_gemm_lif_cuda(spikes: torch.Tensor, weights: torch.Tensor,
     slab of C steps, one launch).  ``beta`` and ``threshold`` are rounded
     to fp32 on the way in, as PyTorch rounds a Python scalar against an
     fp32 tensor."""
-    global launches
     if reset_mechanism not in RESETS:
         raise ValueError(f"unknown reset mechanism {reset_mechanism!r}")
     dev = build.cuda_device(spikes, "spike_gemm_lif")
@@ -70,5 +67,5 @@ def spike_gemm_lif_cuda(spikes: torch.Tensor, weights: torch.Tensor,
                    beta, threshold, int(reset_mechanism == "subtract"),
                    build.stream_ptr(dev))
     build.check_launch(err, "spike_gemm_lif")
-    launches += 1
+    spans.count("launch.spike_gemm_lif")
     return u, s

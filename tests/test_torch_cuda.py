@@ -14,8 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (ops, ref, spike_conv, spike_gemm_bwd,
-                                 spike_gemm_fused)
+from repro_torch.kernels import ops, ref, spike_conv, spike_gemm_bwd
 
 # the package exports the functions spike_gemm, lif_step and penc_compact
 # (the JAX package's kernel API), so their binding modules are reached by
@@ -54,10 +53,10 @@ def test_cuda_spike_gemm_equals_plain(cuda, density):
     rng = np.random.default_rng(9)
     s = _t(_spikes(rng, (70, 1000), density)).to(cuda)
     w = _t(_grid_weights(rng, (1000, 130))).to(cuda)
-    before = spike_gemm.launches
+    before = ops.launch_counts()["spike_gemm"]
     got = ops.spike_gemm(s, w)
     torch.cuda.synchronize()
-    assert spike_gemm.launches == before + 1
+    assert ops.launch_counts()["spike_gemm"] == before + 1
     assert torch.equal(got, ref.spike_gemm_ref(s, w))
 
 
@@ -124,16 +123,16 @@ def test_cuda_conv_kernels_equal_plain(cuda, layer, density):
     counted launch per op call (dW's split pass and reduction are one)."""
     x, w, g, conv, want = _conv_operands(cuda, layer, density, 18)
     k = w.shape[0]
-    before = spike_conv.launches
+    before = ops.launch_counts()["spike_conv"]
     got = ops.spike_conv(x, w, **conv)
     torch.cuda.synchronize()
-    assert spike_conv.launches == before + 1
+    assert ops.launch_counts()["spike_conv"] == before + 1
     assert torch.equal(got, want)
     assert torch.equal(got, ops.spike_conv(x, w, **conv))
-    before = spike_gemm_bwd.dw_launches
+    before = ops.launch_counts()["spike_gemm_dw"]
     dw = ops.spike_conv_bwd_dw(x, g, kernel_size=(k, k), **conv)
     torch.cuda.synchronize()
-    assert spike_gemm_bwd.dw_launches == before + 1
+    assert ops.launch_counts()["spike_gemm_dw"] == before + 1
     assert torch.equal(dw, ref.spike_conv_dw_ref(x, g, k, k, **conv))
     assert torch.equal(dw, ops.spike_conv_bwd_dw(x, g, kernel_size=(k, k),
                                                  **conv))
@@ -195,18 +194,18 @@ def test_cuda_split_path_equals_plain(cuda, m, k, n, density):
     b = _t(_grid_weights(rng, (n,))).to(cuda)
     u0 = _t(_grid_weights(rng, (m, n), 1.0)).to(cuda)
     s0 = _t(_spikes(rng, (m, n), 0.3)).to(cuda)
-    before = spike_gemm.launches
+    before = ops.launch_counts()["spike_gemm"]
     got = ops.spike_gemm(s, w)
     torch.cuda.synchronize()
-    assert spike_gemm.launches == before + 1
+    assert ops.launch_counts()["spike_gemm"] == before + 1
     assert torch.equal(got, ref.spike_gemm_ref(s, w))
     assert torch.equal(got, ops.spike_gemm(s, w))
     for reset in ("subtract", "zero"):
         kw = dict(beta=0.95, threshold=1.0, reset_mechanism=reset)
-        before = spike_gemm_fused.launches
+        before = ops.launch_counts()["spike_gemm_lif"]
         got = ops.spike_gemm_lif_step(s, w, b, u0, s0, **kw)
         torch.cuda.synchronize()
-        assert spike_gemm_fused.launches == before + 1
+        assert ops.launch_counts()["spike_gemm_lif"] == before + 1
         want = ref.spike_gemm_lif_ref(s, w, b, u0, s0, **kw)
         again = ops.spike_gemm_lif_step(s, w, b, u0, s0, **kw)
         for g, wv, a in zip(got, want, again):
@@ -248,13 +247,13 @@ def test_cuda_dw_ds_equal_plain(cuda, m, k, n, density):
     s = _t(_spikes(rng, (m, k), density)).to(cuda)
     g = _t(_cotangent(rng, (m, n))).to(cuda)
     w = _t(_grid_weights(rng, (k, n))).to(cuda)
-    dw_before = spike_gemm_bwd.dw_launches
-    ds_before = spike_gemm_bwd.ds_launches
+    dw_before = ops.launch_counts()["spike_gemm_dw"]
+    ds_before = ops.launch_counts()["spike_gemm_ds"]
     dw = ops.spike_gemm_bwd_dw(s, g)
     ds = ops.spike_gemm_bwd_ds(g, w)
     torch.cuda.synchronize()
-    assert spike_gemm_bwd.dw_launches == dw_before + 1
-    assert spike_gemm_bwd.ds_launches == ds_before + 1
+    assert ops.launch_counts()["spike_gemm_dw"] == dw_before + 1
+    assert ops.launch_counts()["spike_gemm_ds"] == ds_before + 1
     assert torch.equal(dw, ref.spike_gemm_dw_ref(s, g))
     assert torch.equal(ds, ref.spike_gemm_ds_ref(g, w))
     assert torch.equal(dw, ops.spike_gemm_bwd_dw(s, g))     # no run-to-run
@@ -284,10 +283,10 @@ def test_cuda_conv_ds_equals_plain(cuda, layer, density):
     gen = torch.Generator(device=cuda).manual_seed(22)
     g = torch.randn(out.shape, generator=gen, device=cuda).round().clamp(-2, 2)
     g = g * (torch.rand(out.shape, generator=gen, device=cuda) < density)
-    before = spike_gemm_bwd.ds_launches
+    before = ops.launch_counts()["spike_gemm_ds"]
     ds = ops.spike_conv_bwd_ds(g, w, tuple(x.shape), **conv)
     torch.cuda.synchronize()
-    assert spike_gemm_bwd.ds_launches == before + 1
+    assert ops.launch_counts()["spike_gemm_ds"] == before + 1
     assert torch.equal(ds, ref.spike_conv_ds_ref(g, w, tuple(x.shape),
                                                  **conv))
     assert torch.equal(ds, ops.spike_conv_bwd_ds(g, w, tuple(x.shape),
@@ -459,10 +458,10 @@ def test_cuda_lif_step_equals_plain(cuda, shape, aligned, reset, dtype):
     if not aligned:
         args = [_unaligned(a) for a in args]
     kw = dict(beta=0.9, threshold=0.7, reset_mechanism=reset)
-    before = lif_kernel.launches
+    before = ops.launch_counts()["lif_step"]
     got = ops.lif_step(*args, **kw)
     torch.cuda.synchronize()
-    assert lif_kernel.launches == before + 1
+    assert ops.launch_counts()["lif_step"] == before + 1
     want = ref.lif_step_ref(*args, **kw)
     for g, w in zip(got, want):
         assert g.dtype == dtype and torch.equal(g, w)
@@ -490,10 +489,10 @@ def test_cuda_penc_compact_equals_plain(cuda, shape, aligned, density):
     if not aligned:
         s = _unaligned(s)
     for capacity in (shape[1], 100, 7, 1, 0, shape[1] + 5, 2 * shape[1]):
-        before = penc_kernel.launches
+        before = ops.launch_counts()["penc_compact"]
         idx, cnt = ops.penc_compact(s, capacity)
         torch.cuda.synchronize()
-        assert penc_kernel.launches == before + 1
+        assert ops.launch_counts()["penc_compact"] == before + 1
         want_idx, want_cnt = ref.penc_compact_ref(s, capacity)
         assert idx.dtype == cnt.dtype == torch.int32
         assert torch.equal(idx, want_idx) and torch.equal(cnt, want_cnt)
@@ -589,19 +588,19 @@ def test_cuda_cell_axis_dense_forward(cuda, m, k, n):
     assert flags.shape == (3,) + spike_gemm.build.tile_grid(m, k)
     for c in range(3):
         assert torch.equal(flags[c], ops.block_flags(s[c]))
-    before = spike_gemm.launches
+    before = ops.launch_counts()["spike_gemm"]
     got = ops.spike_gemm(s, w)
     torch.cuda.synchronize()
-    assert spike_gemm.launches == before + 1
+    assert ops.launch_counts()["spike_gemm"] == before + 1
     for c in range(3):
         assert torch.equal(got[c], ops.spike_gemm(s[c], w[c]))
         assert torch.equal(got[c], ref.spike_gemm_ref(s[c], w[c]))
     for reset in ("subtract", "zero"):
         kw = dict(beta=0.95, threshold=1.0, reset_mechanism=reset)
-        before = spike_gemm_fused.launches
+        before = ops.launch_counts()["spike_gemm_lif"]
         u, sp = ops.spike_gemm_lif_step(s, w, b, u0, s0, **kw)
         torch.cuda.synchronize()
-        assert spike_gemm_fused.launches == before + 1
+        assert ops.launch_counts()["spike_gemm_lif"] == before + 1
         for c in range(3):
             solo = ops.spike_gemm_lif_step(s[c], w[c], b[c], u0[c], s0[c],
                                            **kw)
@@ -620,13 +619,13 @@ def test_cuda_cell_axis_dense_backward(cuda, m, k, n):
     s = _cell_stack(lambda i, d: _t(_spikes(rng, (m, k), d))).to(cuda)
     g = _cell_stack(lambda i, d: _t(_cotangent(rng, (m, n), 1 - d))).to(cuda)
     w = _cell_stack(lambda i, d: _t(_grid_weights(rng, (k, n)))).to(cuda)
-    dw_before = spike_gemm_bwd.dw_launches
-    ds_before = spike_gemm_bwd.ds_launches
+    dw_before = ops.launch_counts()["spike_gemm_dw"]
+    ds_before = ops.launch_counts()["spike_gemm_ds"]
     dw = ops.spike_gemm_bwd_dw(s, g)
     ds = ops.spike_gemm_bwd_ds(g, w)
     torch.cuda.synchronize()
-    assert spike_gemm_bwd.dw_launches == dw_before + 1
-    assert spike_gemm_bwd.ds_launches == ds_before + 1
+    assert ops.launch_counts()["spike_gemm_dw"] == dw_before + 1
+    assert ops.launch_counts()["spike_gemm_ds"] == ds_before + 1
     for c in range(3):
         assert torch.equal(dw[c], ops.spike_gemm_bwd_dw(s[c], g[c]))
         assert torch.equal(dw[c], ref.spike_gemm_dw_ref(s[c], g[c]))
@@ -644,14 +643,14 @@ def test_cuda_cell_axis_conv(cuda, layer):
     conv = cells[0][3]
     x, w, g = (torch.stack([cell[j] for cell in cells]) for j in range(3))
     k = w.shape[1]
-    counts = (spike_conv.launches, spike_gemm_bwd.dw_launches,
-              spike_gemm_bwd.ds_launches)
+    names = ("spike_conv", "spike_gemm_dw", "spike_gemm_ds")
+    counts = [ops.launch_counts()[n] for n in names]
     out = ops.spike_conv(x, w, **conv)
     dw = ops.spike_conv_bwd_dw(x, g, kernel_size=(k, k), **conv)
     ds = ops.spike_conv_bwd_ds(g, w, tuple(x.shape), **conv)
     torch.cuda.synchronize()
-    assert (spike_conv.launches, spike_gemm_bwd.dw_launches,
-            spike_gemm_bwd.ds_launches) == tuple(n + 1 for n in counts)
+    assert [ops.launch_counts()[n] for n in names] == [
+        n + 1 for n in counts]
     for c in range(3):
         xc, wc, gc = x[c], w[c], g[c]
         assert torch.equal(out[c], ops.spike_conv(xc, wc, **conv))
