@@ -49,8 +49,10 @@ script then exits non-zero and never prints its result line):
    BPTT) on each backend from the same grid weights and batch, with the
    counters set to 0 before each backend and read after it (dW and dS
    included) and ``conv_col2im`` refused on CUDA tensors (a conv layer's
-   dS must not go through patch space); equal losses and gradients within
-   a stated tolerance; a
+   dS must not go through patch space); on the kernel backends the step's
+   graph holds one conv-epilogue node a conv layer a time step and no
+   OR-pool node of its own; equal losses and gradients within a stated
+   tolerance; a
    profile of the step's forward and backward by kernel; three Adam steps
    on the default backend with their losses, times and peak memory.
 6. The whole cell: the registry's dvs-conv at T = 8 with its own recipe
@@ -99,7 +101,9 @@ script then exits non-zero and never prints its result line):
    two events encloses the wrapper's host time before the launch when that
    is longer than the kernel.  conv2's dS row times the layer's whole input
    gradient (``ops.spike_conv_bwd_ds``) against cuDNN's
-   ``torch.nn.grad.conv2d_input``.
+   ``torch.nn.grad.conv2d_input``.  Then the conv epilogue's two kernels
+   alone (``epilogue_phase``), L2 flushed, at net-5's two conv layers,
+   against their byte bounds and the unfused chain of PyTorch ops.
 8. The LM serving path (it runs between phases 6d and 7), with the seven
    kernels' counters set to 0 before it and read after: all must read 0.
    Every family, each config at full width in bf16 with weights from the
@@ -200,6 +204,7 @@ The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
+import collections
 import dataclasses
 import importlib
 import json
@@ -235,22 +240,29 @@ NORMAL_RTOL = 1e-5
 # Inference runs no backward kernel, and no path of the model runs the
 # kernel API's lif_step or penc_compact: the model's LIF update is
 # core.lif, as in the JAX package.
+# On both kernel backends each conv layer's epilogue (bias, LIF, spike and
+# its OR-pool) is one conv_epilogue launch.
 API_ONLY = {"lif_step": 0, "penc_compact": 0}
 EXPECTED = {"spike_gemm_fused": {"spike_gemm": 0, "spike_gemm_lif": 3,
                                  "spike_conv": 2, "spike_gemm_dw": 0,
-                                 "spike_gemm_ds": 0, **API_ONLY},
+                                 "spike_gemm_ds": 0, **API_ONLY,
+                                 "conv_epilogue": 2},
             "spike_gemm": {"spike_gemm": 3, "spike_gemm_lif": 0,
                            "spike_conv": 2, "spike_gemm_dw": 0,
-                           "spike_gemm_ds": 0, **API_ONLY},
+                           "spike_gemm_ds": 0, **API_ONLY,
+                           "conv_epilogue": 2},
             "torch": {"spike_gemm": 0, "spike_gemm_lif": 0, "spike_conv": 0,
-                      "spike_gemm_dw": 0, "spike_gemm_ds": 0, **API_ONLY}}
+                      "spike_gemm_dw": 0, "spike_gemm_ds": 0, **API_ONLY,
+                      "conv_epilogue": 0}}
 # The same for one training step (forward and BPTT), per time step: dW for
 # each of the 5 spiking layers, dS for 4 of them, because conv1's input is
 # the encoded events, which need no gradient (dS runs only where
-# ctx.needs_input_grad asks for it).
+# ctx.needs_input_grad asks for it), and the conv epilogue's backward for
+# the 2 conv layers.
 TRAIN_EXPECTED = {
     backend: {**counts, "spike_gemm_dw": 5 if backend != "torch" else 0,
-              "spike_gemm_ds": 4 if backend != "torch" else 0}
+              "spike_gemm_ds": 4 if backend != "torch" else 0,
+              "conv_epilogue": 4 if backend != "torch" else 0}
     for backend, counts in EXPECTED.items()}
 # The path on which each kernel's launches are reported: a backend of the
 # model, or the kernel API phase.
@@ -264,7 +276,7 @@ LAUNCHED_ON = {"spike_gemm": "spike_gemm", "spike_gemm_lif": "spike_gemm_fused",
 # of the 3 dense layers.
 API_EXPECTED = {"spike_gemm": 3, "spike_gemm_lif": 0, "spike_conv": 0,
                 "spike_gemm_dw": 0, "spike_gemm_ds": 0, "lif_step": 3,
-                "penc_compact": 5}
+                "penc_compact": 5, "conv_epilogue": 0}
 # The conv layers held against their plain versions, ((B, H, W, C), F,
 # kernel, stride, padding): ragged ones (odd sizes, stride 2, VALID, C = 3,
 # 4 and 33, F = 5 and 33), dvs-conv's two convs and net-5's conv1 and conv2.
@@ -623,13 +635,15 @@ def conv_reach(torch, ref, x, k: int, stride: int, padding: str):
 def dvs_cell_launches(wl, num_steps: int) -> dict:
     """Kernel launches of one dvs-conv cell miss at T = ``num_steps``: per
     Adam step the 2 convs and the 2 dense layers forward, dW on all 4, dS
-    on 3 (not on the events); then one inference each in evaluate (128 test
-    samples, one batch) and dump_traces."""
+    on 3 (not on the events), the 2 conv epilogues each way; then one
+    inference each in evaluate (128 test samples, one batch) and
+    dump_traces."""
     runs = wl.train_steps + 2
     return {"spike_gemm": 0, "spike_gemm_lif": 2 * num_steps * runs,
             "spike_conv": 2 * num_steps * runs,
             "spike_gemm_dw": 4 * num_steps * wl.train_steps,
-            "spike_gemm_ds": 3 * num_steps * wl.train_steps, **API_ONLY}
+            "spike_gemm_ds": 3 * num_steps * wl.train_steps, **API_ONLY,
+            "conv_epilogue": 2 * num_steps * (runs + wl.train_steps)}
 
 
 def same_cell(a, b, what):
@@ -1881,6 +1895,80 @@ def finish_dryruns(procs: list) -> dict:
                 out_dir.glob("*__single.json")))}
 
 
+# The conv epilogue's timing phase: net-5's two conv layers' maps (B, H,
+# W, F), each followed by a 2 x 2 OR-pool, the subtract reset.
+EPILOGUE_LAYERS = {"conv1": (BATCH, 128, 128, 32), "conv2": (BATCH, 64, 64,
+                                                            32)}
+
+
+def epilogue_bytes(shape, window: int) -> dict:
+    """Bytes each way of the conv epilogue at the subtract reset, pooled:
+    forward reads cur, u_prev, s_prev and writes u, s, the pooled map and
+    the first maxima; backward reads gu, gs, u, the pooled cotangent and
+    the first maxima and writes d_cur, d_u_prev, d_s_prev (the bias and
+    its per-block partial sums are under 0.1% and left out)."""
+    n = math.prod(shape)
+    pooled = n // (window * window)
+    return {"forward": 4 * 5 * n + 5 * pooled,
+            "backward": 4 * 6 * n + 5 * pooled}
+
+
+def epilogue_phase(torch, dev) -> list:
+    """The two conv-epilogue kernels alone, L2 flushed, at net-5's conv
+    layers, each against its byte bound and against the unfused chain of
+    PyTorch ops (its plain version) on the card: a row a kernel a layer."""
+    epilogue_kernel = importlib.import_module(
+        "repro_torch.kernels.conv_epilogue")
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = l2_flush(torch, dev)
+    kw = dict(beta=0.95, threshold=1.0, reset_mechanism="subtract")
+    rows = []
+    for name, shape in EPILOGUE_LAYERS.items():
+        b, h, w, f = shape
+        pshape = (b, h // 2, w // 2, f)
+        cur, u_prev, gu, gs = (torch.randn(shape, generator=gen, device=dev)
+                               for _ in range(4))
+        s_prev = (torch.rand(shape, generator=gen, device=dev) < 0.1).float()
+        gp = torch.randn(pshape, generator=gen, device=dev)
+        bias = torch.randn(f, generator=gen, device=dev) * 0.1
+        u, _, _, first = epilogue_kernel.conv_epilogue_fwd_cuda(
+            cur, bias, u_prev, s_prev, window=2, **kw)
+        needs = (True, True, True, True)
+        calls = {
+            "forward": (
+                lambda: epilogue_kernel.conv_epilogue_fwd_cuda(
+                    cur, bias, u_prev, s_prev, window=2, **kw),
+                lambda: ref.conv_lif_ref(cur, bias, u_prev, s_prev, window=2,
+                                         **kw)),
+            "backward": (
+                lambda: epilogue_kernel.conv_epilogue_bwd_cuda(
+                    gu, gs, gp, first, u, None, None, needs, slope=25.0,
+                    window=2, **kw),
+                lambda: ref.conv_lif_bwd_ref(
+                    gu, gs, gp, first, u, None, None, slope=25.0, window=2,
+                    **kw)[0].sum_to_size(f))}
+        nbytes = epilogue_bytes(shape, 2)
+        for way, (fused, plain) in calls.items():
+            row = {"kernel": f"conv_epilogue {way}", "layer": name,
+                   "shape": list(shape),
+                   "kernel_device_ms": device_ms(torch, fused, flush=flush),
+                   "plain_device_ms": device_ms(torch, plain, flush=flush),
+                   "ms": median_ms(torch, fused),
+                   "plain_ms": median_ms(torch, plain),
+                   "bound_ms": bound_ms(nbytes[way], 0)[0]}
+            if row["kernel_device_ms"]:
+                row["bound_share"] = row["bound_ms"] / row["kernel_device_ms"]
+            rows.append(row)
+            log(f"  {name} {way}: kernel {row['kernel_device_ms']} ms "
+                f"(device, flushed), bound {row['bound_ms']:.4f} ms "
+                f"({row.get('bound_share', 0):.1%}); unfused chain "
+                f"{row['plain_device_ms']} ms; event-timed {row['ms']:.4f} "
+                f"/ {row['plain_ms']:.4f} ms")
+        del cur, u_prev, gu, gs, s_prev, gp, u, first
+    return rows
+
+
 def counted_step(torch, dev) -> dict:
     """Phase 11 (b): one AdamW step of tinyllama-1.1b at full width on the
     card, timed without the counter and run once under
@@ -2850,15 +2938,28 @@ def main() -> int:
     def flat(ps):
         return [v for p in ps for v in p.values()]
 
-    def timed_step(ps, backend):
+    def graph_nodes(loss):
+        """The backward nodes of ``loss``'s graph, by class name."""
+        seen, todo = set(), [loss.grad_fn]
+        while todo:
+            node = todo.pop()
+            if node is not None and node not in seen:
+                seen.add(node)
+                todo.extend(n for n, _ in node.next_functions)
+        return collections.Counter(type(n).__name__ for n in seen)
+
+    def timed_step(ps, backend, nodes=None):
         """Loss and gradients of one training step, with the seconds of its
-        forward and of its backward (host clock, synchronised)."""
+        forward and of its backward (host clock, synchronised); ``nodes``,
+        if given, takes the graph's ``graph_nodes``."""
         leaves = leaves_of(ps)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = train_snn.loss_fn(cfg, leaves, enc, xb, yb,
                                  matmul_backend=backend)
         torch.cuda.synchronize()
+        if nodes is not None:
+            nodes.update(graph_nodes(loss))
         t1 = time.perf_counter()
         grads = torch.autograd.grad(loss, flat(leaves))
         torch.cuda.synchronize()
@@ -2907,8 +3008,10 @@ def main() -> int:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
+            nodes = collections.Counter()
             try:
-                loss, grads, fwd_s, bwd_s = timed_step(params, backend)
+                loss, grads, fwd_s, bwd_s = timed_step(params, backend,
+                                                       nodes)
             finally:
                 (ops.spike_gemm_bwd_dw, ops.spike_gemm_bwd_ds,
                  ops.spike_conv_bwd_dw, ops.spike_conv_bwd_ds) = real
@@ -2924,6 +3027,16 @@ def main() -> int:
                 raise AssertionError(f"the {backend} training step launched "
                                      f"{train_launches[backend]}, expected "
                                      f"{want}")
+            # on the kernel backends the conv epilogue pools: no OR-pool
+            # node of its own, one epilogue node a conv layer a time step
+            fused_pool = backend != "torch"
+            graph = (nodes["_OrPoolBackward"], nodes["_ConvLifStepBackward"])
+            log(f"  {backend}: graph nodes _OrPoolBackward {graph[0]}, "
+                f"_ConvLifStepBackward {graph[1]}")
+            if graph != ((0, 2 * NUM_STEPS) if fused_pool
+                         else (2 * NUM_STEPS, 0)):
+                raise AssertionError(f"the {backend} step's graph holds "
+                                     f"{graph} OR-pool and epilogue nodes")
             if not (torch.isfinite(loss) and all(
                     torch.isfinite(g).all() for g in grads)):
                 raise AssertionError(f"{backend}: non-finite loss or grads")
@@ -3663,6 +3776,8 @@ def main() -> int:
         for row in per_layer:
             log("  " + json.dumps(row))
         report["per_layer"] = per_layer
+    with Phase("the conv epilogue's two kernels alone"):
+        report["epilogue"] = epilogue_phase(torch, dev)
 
     kernels = []
     for name in LINES:

@@ -10,10 +10,13 @@ model's actual spike traffic (``spike_counts_per_layer``).
 Backends of the accumulate phase: ``"torch"`` (plain PyTorch ops),
 ``"spike_gemm"`` (block-skip kernels for Dense and Conv) and
 ``"spike_gemm_fused"`` (the fused GEMM+LIF kernel for Dense layers, the
-block-skip conv for Conv layers).  All three give the same spikes, so the
-default is the kernel path.  Every path is differentiable: on the kernel
-backends the layers are ``kernels.ops``' autograd Functions, whose backward
-runs the dW and dS kernels.
+block-skip conv for Conv layers).  On both kernel backends a Conv layer's
+epilogue (bias, LIF update, spike and, where a MaxPool follows it, the
+OR-pool) is one step, ``ops.conv_lif_step``, and that MaxPool layer takes
+its pooled spikes (``SNNConfig.conv_pool_windows``).  All three give the
+same spikes, so the default is the kernel path.  Every path is
+differentiable: on the kernel backends the layers are ``kernels.ops``'
+autograd Functions, whose backward runs the dW and dS kernels.
 
 A slab of cells.  ``step``, ``apply`` and the trace functions also run C
 cells of one topology at once (``distributed/cellstack.py``): params whose
@@ -26,8 +29,10 @@ shape.  So each cell's spikes and gradients equal its solo run's bit for
 bit.
 
 Spans (``repro_torch.spans``).  ``step`` runs each layer in a span named
-by ``SNNConfig.span_names`` (``fwd.conv0``, ``fwd.pool1``, ...), and the
-OR-pool's backward in ``bwd.pool``.
+by ``SNNConfig.span_names`` (``fwd.conv0``, ``fwd.pool1``, ...), but for a
+MaxPool pooled by the conv before it, which does no work of its own; the
+OR-pool's backward runs in ``bwd.pool``, the conv epilogue's in
+``bwd.epilogue``.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from repro_torch.core.lif import LIFParams, lif_step
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
+from repro_torch.kernels.conv_epilogue import MAX_WINDOW as MAX_FUSED_POOL
 
 Params = list[dict[str, torch.Tensor]]
 
@@ -126,6 +132,16 @@ class SNNConfig:
         kinds = {Dense: "dense", Conv: "conv", MaxPool: "pool"}
         return tuple(f"fwd.{kinds[type(spec)]}{i}"
                      for i, spec in enumerate(self.layers))
+
+    @functools.cached_property
+    def conv_pool_windows(self) -> tuple[Optional[int], ...]:
+        """For each layer, the window of the MaxPool right after it that its
+        epilogue pools on the kernel backends (``ops.conv_lif_step``): a
+        Conv followed by a MaxPool of a window up to 16; else None."""
+        return tuple(
+            nxt.window if isinstance(spec, Conv) and isinstance(nxt, MaxPool)
+            and nxt.window <= MAX_FUSED_POOL else None
+            for spec, nxt in zip(self.layers, self.layers[1:] + (None,)))
 
 
 def _out_shape(spec: LayerSpec, in_shape: tuple[int, ...]) -> tuple[int, ...]:
@@ -232,13 +248,13 @@ def _layer_current(spec: LayerSpec, p: dict, s_in: torch.Tensor,
 
     Dense layers run the block-skip GEMM on ``"spike_gemm"`` and a plain
     matmul on ``"torch"`` (``"spike_gemm_fused"`` never reaches here for a
-    Dense layer: ``step`` runs the fused kernel).  Conv layers run the
-    block-skip conv on both kernel backends.  Both kernels are the
-    differentiable ``ops.spike_*_train``.  ``perm`` is an optional
-    pre-synaptic permutation of a Dense layer, ``S[:, perm] @ W[perm, :]``,
-    which leaves the product unchanged.  ``cells``: C for a slab (operands
-    with a leading cell axis); the plain products then run per cell at the
-    solo shape.
+    Dense layer: ``step`` runs the fused kernel).  Conv layers reach here
+    on ``"torch"`` alone (``step`` runs ``_conv_step`` on the kernel
+    backends).  The GEMM is the differentiable ``ops.spike_gemm_train``.
+    ``perm`` is an optional pre-synaptic permutation of a Dense layer,
+    ``S[:, perm] @ W[perm, :]``, which leaves the product unchanged.
+    ``cells``: C for a slab (operands with a leading cell axis); the plain
+    products then run per cell at the solo shape.
     """
     lead = 1 if cells is None else 2
     if isinstance(spec, Dense):
@@ -255,9 +271,7 @@ def _layer_current(spec: LayerSpec, p: dict, s_in: torch.Tensor,
         return _add_bias(cur, p["b"], cells)
     if isinstance(spec, Conv):
         conv = dict(stride=spec.stride, padding=spec.padding)
-        if matmul_backend in ("spike_gemm", "spike_gemm_fused"):
-            out = kernel_ops.spike_conv_train(s_in, p["w"], **conv)
-        elif cells is None:
+        if cells is None:
             out = kernel_ref.spike_conv_ref(s_in, p["w"], **conv)
         else:
             out = torch.stack([kernel_ref.spike_conv_ref(s_in[c], p["w"][c],
@@ -285,6 +299,25 @@ def _fused_dense_step(spec: Dense, p: dict, s_in: torch.Tensor,
         flat, w, p["b"], u_prev, s_prev, beta=lif.beta,
         threshold=lif.threshold, slope=lif.slope,
         reset_mechanism=lif.reset_mechanism)
+
+
+def _conv_step(spec: Conv, p: dict, s_in: torch.Tensor,
+               state: tuple[torch.Tensor, torch.Tensor],
+               pool_window: Optional[int]
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A Conv layer on the kernel backends, for one cell or a slab: the
+    block-skip conv, then its epilogue in one step (``ops.conv_lif_step``),
+    pooled where ``pool_window`` is set.  Returns ``(u, s, out)``: ``out``
+    the pooled spikes, or ``s`` without a pool."""
+    cur = kernel_ops.spike_conv_train(s_in, p["w"], stride=spec.stride,
+                                      padding=spec.padding)
+    u_prev, s_prev = state
+    lif = spec.lif
+    out = kernel_ops.conv_lif_step(
+        cur, p["b"], u_prev, s_prev, beta=lif.beta, threshold=lif.threshold,
+        slope=lif.slope, reset_mechanism=lif.reset_mechanism,
+        pool_window=pool_window)
+    return out if pool_window is not None else (*out, out[1])
 
 
 class _OrPool(torch.autograd.Function):
@@ -374,23 +407,35 @@ def step(cfg: SNNConfig, params: Params, states: list, s_in: torch.Tensor,
     new_states, spikes = [], []
     x = s_in
     fused = matmul_backend == "spike_gemm_fused"
-    for name, spec, p, st, perm in zip(cfg.span_names, cfg.layers, params,
-                                       states, perms):
+    kernels = matmul_backend != "torch"
+    windows = cfg.conv_pool_windows if kernels else (None,) * len(cfg.layers)
+    pooled = False
+    for name, spec, p, st, perm, window in zip(
+            cfg.span_names, cfg.layers, params, states, perms, windows):
+        if pooled:                  # a MaxPool the conv before it ran
+            pooled = False
+            new_states.append(None)
+            continue
         with spans.span(name):
-            if isinstance(spec, Dense) and fused:
-                u, s = _fused_dense_step(spec, p, x, st, perm, cells)
-            elif isinstance(spec, (Dense, Conv)):
-                cur = _layer_current(spec, p, x, matmul_backend, perm, cells)
-                u, s = lif_step(st[0], st[1], cur, spec.lif)
-            elif isinstance(spec, MaxPool):
+            if isinstance(spec, MaxPool):
                 x = _or_pool(x, spec.window)
                 new_states.append(None)
                 continue
+            if isinstance(spec, Conv) and kernels:
+                u, s, x = _conv_step(spec, p, x, st, window)
+                pooled = window is not None
             else:
-                raise TypeError(spec)
+                if isinstance(spec, Dense) and fused:
+                    u, s = _fused_dense_step(spec, p, x, st, perm, cells)
+                elif isinstance(spec, (Dense, Conv)):
+                    cur = _layer_current(spec, p, x, matmul_backend, perm,
+                                         cells)
+                    u, s = lif_step(st[0], st[1], cur, spec.lif)
+                else:
+                    raise TypeError(spec)
+                x = s
         new_states.append((u, s))
         spikes.append(s)
-        x = s
     return new_states, spikes
 
 

@@ -31,7 +31,7 @@ TILE = {"block_m": 32, "block_k": 32}
 DENSE_COLS = 256
 
 SOURCES = ("spike_gemm", "spike_gemm_fused", "spike_conv", "spike_gemm_bwd",
-           "lif_step", "penc_compact")
+           "lif_step", "penc_compact", "conv_epilogue")
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -134,6 +134,15 @@ def cell_lead(t: torch.Tensor, rank: int, what: str) -> tuple[int, ...]:
         return (int(t.shape[0]),)
     raise ValueError(f"{what} takes {rank} dims, or {rank + 1} with a "
                      f"leading cell axis; got {tuple(t.shape)}")
+
+
+def aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and on 16 bytes, copied where it is not: a
+    kernel's float4 loads take it, and a cell's slice of a slab lies as a
+    solo tensor of its shape does (so a reduction over it takes the solo
+    call's vectorized path and sums in the solo call's order)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def cuda_device(t: torch.Tensor, what: str) -> torch.device:

@@ -10,14 +10,16 @@ caller can compute them once (``block_flags``) and pass them to the kernel
 and to ``skip_fraction``.  The conv kernels find their own events in the
 spikes and take no flags.
 
-``spike_gemm_train``, ``spike_conv_train`` and ``spike_gemm_lif_step`` are
-differentiable.  The dense Functions' backward runs the event-driven dW
-and the tiled dS (``spike_gemm_bwd_dw`` / ``_ds``), which find their own
-zeros (the forward's flags ride the saved tensors and are checked against
-the tile grid); the conv Function saves its input spikes and runs the conv
-dW (``spike_conv_bwd_dw``) and the conv dS (``spike_conv_bwd_ds``), which
-writes the (B, H, W, C) input cotangent directly: on the card no
-patch-space cotangent exists and no col2im runs.  All run on the card as
+``spike_gemm_train``, ``spike_conv_train``, ``spike_gemm_lif_step`` and
+``conv_lif_step`` are differentiable.  The dense Functions' backward runs
+the event-driven dW and the tiled dS (``spike_gemm_bwd_dw`` / ``_ds``),
+which find their own zeros (the forward's flags ride the saved tensors and
+are checked against the tile grid); the conv epilogue (``conv_lif_step``:
+bias, LIF, spike and OR-pool) runs one kernel each way; the conv Function
+saves its input spikes and runs the conv dW (``spike_conv_bwd_dw``) and
+the conv dS (``spike_conv_bwd_ds``), which writes the (B, H, W, C) input
+cotangent directly: on the card no patch-space cotangent exists and no
+col2im runs.  All run on the card as
 kernels and on the CPU as their plain versions (there the conv dS is the
 matrix dS in patch space folded back by ``conv_col2im``).  dS runs only
 where ``ctx.needs_input_grad`` asks for it (a net's input spikes need
@@ -37,7 +39,7 @@ bias gradient of the fused step is reduced per cell over the solo shape
 Counting.  Each binding module counts its kernel's launches in
 ``repro_torch.spans`` (``launch.<kernel>``, one counter per entry of
 ``KERNELS``); ``launch_counts`` reads them.  The Functions' backwards run
-in ``bwd.dense`` and ``bwd.conv`` spans.
+in ``bwd.dense``, ``bwd.conv`` and ``bwd.epilogue`` spans.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import spans
+from repro_torch.kernels import conv_epilogue as epilogue_kernel
 from repro_torch.kernels import lif_step as lif_kernel
 from repro_torch.kernels import penc_compact as penc_kernel
 from repro_torch.kernels import ref
@@ -52,13 +55,13 @@ from repro_torch.kernels import spike_conv as conv_kernel
 from repro_torch.kernels import spike_gemm as gemm_kernel
 from repro_torch.kernels import spike_gemm_bwd as bwd_kernel
 from repro_torch.kernels import spike_gemm_fused as fused_kernel
-from repro_torch.kernels.build import TILE, cell_lead, tile_grid
+from repro_torch.kernels.build import TILE, aligned16, cell_lead, tile_grid
 from repro_torch.kernels.spike_conv import conv_out_size
 
 #: The hand-written kernels, each with its counter ``launch.<name>`` in
 #: ``spans``.
 KERNELS = ("spike_gemm", "spike_gemm_lif", "spike_conv", "spike_gemm_dw",
-           "spike_gemm_ds", "lif_step", "penc_compact")
+           "spike_gemm_ds", "lif_step", "penc_compact", "conv_epilogue")
 
 
 def launch_counts() -> dict[str, int]:
@@ -90,21 +93,12 @@ def _per_cell(fn, *operands, **kw) -> torch.Tensor:
                         for c in range(operands[0].shape[0])])
 
 
-def _solo_view(x: torch.Tensor) -> torch.Tensor:
-    """A cell's slice as a solo tensor of its shape lies: contiguous, and on
-    16 bytes (a slice of a slab whose cell is not whole float4s is copied),
-    so that a reduction over it takes the solo call's vectorized path and
-    sums in the solo call's order."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def cell_sum_to(g: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """Per cell of a slab ``g`` (C, ...), ``g[c].sum_to_size(shape)``: the
     reduction autograd runs for a solo broadcast operand of ``shape``, on
     the solo shape, so each cell's sum is the solo sum bit for bit (one
     (C, ...) reduction need not sum in that order)."""
-    return torch.stack([_solo_view(g[c]).sum_to_size(shape)
+    return torch.stack([aligned16(g[c]).sum_to_size(shape)
                         for c in range(g.shape[0])])
 
 
@@ -428,7 +422,7 @@ class _SpikeGemmLifStep(torch.autograd.Function):
         d_b = None
         if needs[2] and cell_lead(g, 2, "spike_gemm_lif_step"):
             # per cell, on the solo shape
-            d_b = torch.stack([_solo_view(g[c]).sum(0)
+            d_b = torch.stack([aligned16(g[c]).sum(0)
                                for c in range(g.shape[0])])
         elif needs[2]:
             d_b = g.sum(0)
@@ -453,6 +447,94 @@ def spike_gemm_lif_step(spikes: torch.Tensor, weights: torch.Tensor,
     return _SpikeGemmLifStep.apply(spikes, weights, bias, u_prev, s_prev,
                                    float(beta), float(threshold),
                                    float(slope), reset_mechanism)
+
+
+class _ConvLifStep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cur, bias, u_prev, s_prev, beta, threshold, slope,
+                reset_mechanism, window):
+        ctx.set_materialize_grads(False)
+        u, s, pooled, first = _conv_lif_forward(
+            cur, bias, u_prev, s_prev, beta, threshold, reset_mechanism,
+            window, True)
+        if reset_mechanism == "subtract":
+            ctx.save_for_backward(u, first)
+        else:
+            ctx.save_for_backward(u, first, u_prev, s_prev)
+        ctx.lif = dict(beta=beta, threshold=threshold, slope=slope,
+                       reset_mechanism=reset_mechanism, window=window)
+        return (u, s) if window is None else (u, s, pooled)
+
+    @staticmethod
+    @spans.spanned("bwd.epilogue")
+    def backward(ctx, gu, gs, gp=None):
+        u, first, *prev = ctx.saved_tensors
+        u_prev, s_prev = prev or (None, None)
+        needs = tuple(ctx.needs_input_grad[:4])
+        if gu is None and gs is None and gp is None:
+            return (None,) * 9
+        if _on_cuda(u):
+            d_cur, d_b, d_u_prev, d_s_prev = \
+                epilogue_kernel.conv_epilogue_bwd_cuda(
+                    gu, gs, gp, first, u, u_prev, s_prev, needs, **ctx.lif)
+        else:
+            d_cur, d_u_prev, d_s_prev = ref.conv_lif_bwd_ref(
+                gu, gs, gp, first, u, u_prev, s_prev, **ctx.lif)
+            d_b = None
+            if needs[1] and u.dim() == 5:     # per cell, on the solo shape
+                d_b = cell_sum_to(d_cur, tuple(u.shape[-1:]))
+            elif needs[1]:
+                d_b = d_cur.sum_to_size(u.shape[-1:])
+        return (d_cur if needs[0] else None, d_b,
+                d_u_prev if needs[2] else None,
+                d_s_prev if needs[3] else None, None, None, None, None, None)
+
+
+def _conv_lif_forward(cur, bias, u_prev, s_prev, beta, threshold,
+                      reset_mechanism, window, first):
+    lif = dict(beta=beta, threshold=threshold,
+               reset_mechanism=reset_mechanism)
+    if _on_cuda(cur):
+        return epilogue_kernel.conv_epilogue_fwd_cuda(
+            cur, bias, u_prev, s_prev, window=window, save_first=first, **lif)
+    return ref.conv_lif_ref(cur, bias, u_prev, s_prev, window=window,
+                            first=first, **lif)
+
+
+def conv_lif_step(cur: torch.Tensor, bias: torch.Tensor,
+                  u_prev: torch.Tensor, s_prev: torch.Tensor, *, beta: float,
+                  threshold: float, slope: float = 25.0,
+                  reset_mechanism: str = "subtract",
+                  pool_window: int = None) -> tuple[torch.Tensor, ...]:
+    """A conv layer's epilogue as one differentiable step: from the
+    bias-free conv output ``cur`` (B, H, W, F), its bias (F,) and the
+    previous ``(u, s)``, the LIF update of ``cur + b`` and its spikes
+    ``(u, s)``, and where ``pool_window`` is set also the OR-pooled spikes
+    (B, H // k, W // k, F) (VALID: a ragged edge is dropped; k up to 16).
+    A slab takes a leading cell axis on every operand, the bias (C, F).
+
+    Its forward equals ``snn._add_bias``, ``lif.lif_step`` and
+    ``snn._OrPool`` in a row bit for bit; its backward equals the
+    cotangents autograd derives on that chain (the fast-sigmoid surrogate
+    of slope ``slope``, the gradient of a window to its first maximum), but
+    for the bias gradient's order of summation on the card.  One kernel
+    each way on the card (``launch.conv_epilogue``), the plain version on
+    the CPU.  Outside autograd (no_grad, or no operand needing a gradient)
+    it saves nothing and keeps no first maxima."""
+    if reset_mechanism not in epilogue_kernel.RESETS:
+        raise ValueError(f"unknown reset mechanism {reset_mechanism!r}")
+    window = None if pool_window is None else int(pool_window)
+    if window is not None and not 1 <= window <= epilogue_kernel.MAX_WINDOW:
+        raise ValueError(f"conv_lif_step pools windows of 1 to "
+                         f"{epilogue_kernel.MAX_WINDOW}, got {window}")
+    args = (float(beta), float(threshold))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (cur, bias, u_prev, s_prev)):
+        return _ConvLifStep.apply(cur, bias, u_prev, s_prev, *args,
+                                  float(slope), reset_mechanism, window)
+    u, s, pooled, _ = _conv_lif_forward(cur, bias, u_prev, s_prev, *args,
+                                        reset_mechanism, window, False)
+    return (u, s) if window is None else (u, s, pooled)
 
 
 def skip_fraction(spikes: torch.Tensor, block_m: int = TILE["block_m"],

@@ -163,3 +163,92 @@ def spike_gemm_lif_ref(spikes: torch.Tensor, weights: torch.Tensor,
     cur = spike_gemm_ref(spikes, weights) + bias
     return lif_step_ref(u_prev, s_prev, cur, beta=beta, threshold=threshold,
                         reset_mechanism=reset_mechanism)
+
+
+def _bias_view(bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A solo bias (F,) as it is, a slab's (C, F) broadcast over each cell's
+    (B, H, W, F) (``snn._CellBias``)."""
+    if bias.dim() == 1:
+        return bias
+    return bias.reshape((bias.shape[0],) + (1,) * (x.dim() - 2)
+                        + tuple(bias.shape[1:]))
+
+
+def conv_lif_ref(cur: torch.Tensor, bias: torch.Tensor,
+                 u_prev: torch.Tensor, s_prev: torch.Tensor, *, beta: float,
+                 threshold: float, reset_mechanism: str = "subtract",
+                 window=None, first: bool = True):
+    """The conv layer's epilogue unfused, the ops ``snn.step`` runs on the
+    ``torch`` backend in their order: the bias add (``snn._add_bias``),
+    ``lif.lif_step`` (its products with Python floats, the spike of
+    ``u - threshold``) and, where ``window`` is set, ``snn._OrPool``'s
+    forward over (..., H, W, F) with the leading dims folded into images.
+    Returns ``(u, s, pooled, first)``: ``pooled`` None without a window,
+    ``first`` (uint8, the row-major index of each window's first maximum)
+    None without one or where ``first`` is false (``amax``, as
+    ``_OrPool`` runs under no_grad)."""
+    x = cur + _bias_view(bias, cur)
+    if reset_mechanism == "subtract":
+        u = beta * u_prev + x - threshold * s_prev
+    elif reset_mechanism == "zero":
+        u = beta * u_prev * (1.0 - s_prev) + x
+    else:
+        raise ValueError(f"unknown reset mechanism {reset_mechanism!r}")
+    s = (u - threshold > 0).to(u.dtype)
+    if window is None:
+        return u, s, None, None
+    lead = tuple(s.shape[:-3])
+    h, w, c = s.shape[-3:]
+    flat = s.reshape((-1, h, w, c))
+    oh, ow = h // window, w // window
+    win = flat[:, :oh * window, :ow * window, :].reshape(
+        -1, oh, window, ow, window, c)
+    if not first:
+        return u, s, win.amax(dim=(2, 4)).reshape(lead + (oh, ow, c)), None
+    win = win.permute(0, 1, 3, 5, 2, 4).reshape(-1, oh, ow, c,
+                                                window * window)
+    pooled, idx = win.max(dim=-1)          # ties: the lowest index
+    return (u, s, pooled.reshape(lead + (oh, ow, c)),
+            idx.to(torch.uint8).reshape(lead + (oh, ow, c)))
+
+
+def conv_lif_bwd_ref(gu, gs, gp, first, u: torch.Tensor, u_prev, s_prev, *,
+                     beta: float, threshold: float, slope: float,
+                     reset_mechanism: str = "subtract", window=None):
+    """The cotangents of ``conv_lif_ref``'s inputs from those of ``(u, s,
+    pooled)`` (each None where none flowed), the terms autograd derives on
+    the unfused chain, each op as it runs there: ``_OrPool``'s scatter to
+    the first maximum (zero on the ragged edge) plus the reset's cotangent
+    of s, ``SpikeFn``'s surrogate and the LIF chain rule.  Returns
+    ``(d_cur, d_u_prev, d_s_prev)``; the bias's gradient is ``d_cur``'s
+    ``sum_to_size`` (``ops.conv_lif_step``)."""
+    g_s = None
+    if gp is not None:
+        h, w, c = u.shape[-3:]
+        oh, ow = h // window, w // window
+        g_flat = gp.reshape((-1, oh, ow, c))
+        n = g_flat.shape[0]
+        win = g_flat.new_zeros((n, oh, ow, c, window * window))
+        win.scatter_(-1, first.reshape(g_flat.shape).long().unsqueeze(-1),
+                     g_flat.unsqueeze(-1))
+        d = win.reshape(n, oh, ow, c, window, window).permute(
+            0, 1, 4, 2, 5, 3).reshape(n, oh * window, ow * window, c)
+        if (oh * window, ow * window) != (h, w):   # the dropped edge: zero
+            d = F.pad(d, (0, 0, 0, w - ow * window, 0, h - oh * window))
+        g_s = d.reshape(u.shape)
+    if gs is not None:
+        g_s = gs if g_s is None else g_s + gs
+    if g_s is not None:
+        v = u - threshold
+        surr = 1.0 / torch.square(1.0 + slope * torch.abs(v))
+        g_v = g_s * surr
+        g = g_v if gu is None else gu + g_v
+    else:
+        g = gu
+    if reset_mechanism == "subtract":
+        d_u_prev = g * beta
+        d_s_prev = -g * threshold
+    else:
+        d_u_prev = g * (1.0 - s_prev) * beta
+        d_s_prev = -(g * (beta * u_prev))
+    return g, d_u_prev, d_s_prev

@@ -21,6 +21,7 @@ from repro_torch.kernels import ops, ref, spike_conv, spike_gemm_bwd
 # their full names
 spike_gemm = importlib.import_module("repro_torch.kernels.spike_gemm")
 lif_kernel = importlib.import_module("repro_torch.kernels.lif_step")
+epilogue_kernel = importlib.import_module("repro_torch.kernels.conv_epilogue")
 penc_kernel = importlib.import_module("repro_torch.kernels.penc_compact")
 
 GRID = 2.0 ** -8
@@ -695,3 +696,234 @@ def test_cuda_cell_axis_autograd_step_equals_solo(cuda, which):
         solo = _backward_step(fn, args[c], cots[c], cuda)
         for a, b in zip(stacked, solo):
             assert torch.equal(a[c], b)
+
+
+# ---- the conv epilogue (bias, LIF, spike, OR-pool) -------------------------
+#
+# ops.conv_lif_step on the card against its plain version
+# (ref.conv_lif_ref / conv_lif_bwd_ref, the unfused chain's ops) run on the
+# same card tensors: u, s, the pooled map, the first maxima and the three
+# elementwise cotangents bit for bit; the bias gradient to fp32 summation
+# order (exactly where every partial sum is exact).
+
+#: (B, H, W, F): net-5's conv1 and conv2 at a small B, a ragged 33 x 33
+#: image, channels that are not whole float4s, and the dvs-conv cell's
+#: first conv.
+EPILOGUE_SHAPES = [(4, 128, 128, 32), (4, 64, 64, 32), (2, 33, 33, 32),
+                   (2, 33, 31, 5), (8, 32, 32, 8)]
+
+
+def _epilogue_operands(cuda, shape, seed, pooled=True, grid=False):
+    """cur, bias, u_prev, s_prev, and the cotangents of u, s and the
+    pooled map, made on the card: normal values that put a share of u near
+    the threshold, or on the 1/256 grid with small magnitudes."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    lead, f = shape[:-4], shape[-1]
+
+    def normal(shp, scale=1.0, shift=0.0):
+        x = torch.randn(shp, generator=gen, device=cuda) * scale + shift
+        return torch.round(x * 256) / 256 if grid else x
+
+    def spikes(shp, p=0.3):
+        return (torch.rand(shp, generator=gen, device=cuda) < p).float()
+
+    b_, h, w = shape[-4:-1]
+    pshape = lead + (b_, h // 2, w // 2, f)
+    return dict(cur=normal(shape, 0.8, 0.4), bias=normal(lead + (f,), 0.1),
+                u_prev=normal(shape, 0.5, 0.8), s_prev=spikes(shape),
+                gu=normal(shape), gs=normal(shape),
+                gp=normal(pshape) if pooled else None)
+
+
+def _epilogue_both(op, reset, window, slope=25.0, drop=()):
+    """(fused, plain) outputs and cotangents of one step; ``drop`` names
+    cotangents that did not flow (None)."""
+    kw = dict(beta=0.95, threshold=1.0, reset_mechanism=reset)
+    fwd = epilogue_kernel.conv_epilogue_fwd_cuda(
+        op["cur"], op["bias"], op["u_prev"], op["s_prev"], window=window,
+        **kw)
+    plain = ref.conv_lif_ref(op["cur"], op["bias"], op["u_prev"],
+                             op["s_prev"], window=window, **kw)
+    u, first = fwd[0], fwd[3]
+    cots = {k: None if k in drop else op[k] for k in ("gu", "gs", "gp")}
+    if window is None:
+        cots["gp"] = None
+    bwd = epilogue_kernel.conv_epilogue_bwd_cuda(
+        cots["gu"], cots["gs"], cots["gp"], first, u, op["u_prev"],
+        op["s_prev"], (True, True, True, True), slope=slope, window=window,
+        **kw)
+    plain_bwd = ref.conv_lif_bwd_ref(
+        cots["gu"], cots["gs"], cots["gp"], first, u, op["u_prev"],
+        op["s_prev"], slope=slope, window=window, **kw)
+    return fwd, plain, bwd, plain_bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [2, None], ids=["pool2", "nopool"])
+@pytest.mark.parametrize("reset", ["subtract", "zero"])
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+def test_cuda_conv_epilogue_equals_plain(cuda, shape, reset, window):
+    op = _epilogue_operands(cuda, shape, 50)
+    before = ops.launch_counts()["conv_epilogue"]
+    fwd, plain, bwd, plain_bwd = _epilogue_both(op, reset, window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["conv_epilogue"] == before + 2
+    for name, got, want in zip(("u", "s", "pooled", "first"), fwd, plain):
+        assert (got is None) == (want is None), name
+        if got is not None:
+            assert got.dtype == want.dtype and torch.equal(got, want), name
+    assert 0.05 < fwd[1].mean().item() < 0.95
+    d_cur, d_b, d_u_prev, d_s_prev = bwd
+    for name, got, want in zip(("d_cur", "d_u_prev", "d_s_prev"),
+                               (d_cur, d_u_prev, d_s_prev), plain_bwd):
+        assert torch.equal(got, want), name
+    # fp32 summation order: within a few roundings of the sum of |g|
+    g = plain_bwd[0]
+    gap = (d_b - g.sum_to_size(d_b.shape)).abs()
+    assert (gap <= 1e-5 * g.abs().sum_to_size(d_b.shape)).all()
+    again = _epilogue_both(op, reset, window)[2]
+    assert all(torch.equal(a, b) for a, b in zip(bwd, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", [("gu",), ("gs",), ("gp",), ("gu", "gs")])
+def test_cuda_conv_epilogue_missing_cotangents(cuda, drop):
+    """Where a cotangent did not flow (the last step's u, the pool's only
+    reader), the kernel takes none and still equals the plain version."""
+    op = _epilogue_operands(cuda, (2, 33, 33, 32), 51)
+    _, _, bwd, plain_bwd = _epilogue_both(op, "subtract", 2, drop=drop)
+    for got, want in zip((bwd[0], bwd[2], bwd[3]), plain_bwd):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 64, 64, 32), (2, 33, 31, 5)])
+def test_cuda_conv_epilogue_bias_grad_exact_on_grid(cuda, shape):
+    """slope 0 makes the surrogate 1: g is on the 1/256 grid, every partial
+    sum is exact, and the bias gradient equals ``sum_to_size``'s."""
+    op = _epilogue_operands(cuda, shape, 52, grid=True)
+    _, _, bwd, plain_bwd = _epilogue_both(op, "subtract", 2, slope=0.0)
+    d_b = bwd[1]
+    assert torch.equal(d_b, plain_bwd[0].sum_to_size(d_b.shape))
+
+
+@pytest.mark.cuda
+def test_cuda_conv_epilogue_no_grad(cuda):
+    """Under no_grad the step saves nothing, writes no first maxima, and
+    equals the plain version."""
+    op = _epilogue_operands(cuda, (2, 33, 33, 32), 53)
+    args = [op[k] for k in ("cur", "bias", "u_prev", "s_prev")]
+    kw = dict(beta=0.95, threshold=1.0)
+    fwd = epilogue_kernel.conv_epilogue_fwd_cuda(*args, window=2,
+                                                 save_first=False, **kw)
+    assert fwd[3] is None
+    with torch.no_grad():
+        got = ops.conv_lif_step(*(a.requires_grad_() for a in args),
+                                pool_window=2, **kw)
+    want = ref.conv_lif_ref(*args, window=2, first=False, **kw)
+    assert all(g.grad_fn is None for g in got)
+    for g, w, f in zip(got, want, fwd):
+        assert torch.equal(g, w) and torch.equal(g, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 33, 33, 32), (3, 16, 16, 8),
+                                   (2, 9, 11, 5)])
+def test_cuda_conv_epilogue_slab_equals_solo(cuda, shape):
+    """A 3-cell slab through the autograd Function, cell by cell against
+    the solo step bit for bit, the bias gradient included; one counted
+    launch each way for the slab."""
+    op = _epilogue_operands(cuda, (3,) + shape, 54)
+    names = ("cur", "bias", "u_prev", "s_prev")
+    kw = dict(beta=0.95, threshold=1.0, pool_window=2)
+
+    def step(c=None):
+        leaves = [(op[k] if c is None else op[k][c]).clone()
+                  .requires_grad_() for k in names]
+        outs = ops.conv_lif_step(*leaves, **kw)
+        cots = [op[k] if c is None else op[k][c] for k in ("gu", "gs", "gp")]
+        grads = torch.autograd.grad(outs, leaves, cots)
+        return [t.detach() for t in (*outs, *grads)]
+
+    before = ops.launch_counts()["conv_epilogue"]
+    slab = step()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["conv_epilogue"] == before + 2
+    for c in range(3):
+        for a, b in zip(slab, step(c)):
+            assert torch.equal(a[c], b)
+
+
+@pytest.mark.cuda
+def test_cuda_conv_epilogue_refuses_what_it_cannot_take(cuda):
+    op = _epilogue_operands(cuda, (2, 8, 8, 4), 55)
+    args = [op[k] for k in ("cur", "bias", "u_prev", "s_prev")]
+    kw = dict(beta=0.95, threshold=1.0)
+    with pytest.raises(ValueError, match="windows"):
+        epilogue_kernel.conv_epilogue_fwd_cuda(*args, window=17, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        epilogue_kernel.conv_epilogue_fwd_cuda(args[0], args[1][:2],
+                                               *args[2:], **kw)
+    with pytest.raises(TypeError, match="dtype"):
+        epilogue_kernel.conv_epilogue_fwd_cuda(args[0].double(), *args[1:],
+                                               **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        epilogue_kernel.conv_epilogue_fwd_cuda(*(a.cpu() for a in args),
+                                               **kw)
+
+
+def _unfused_conv_step(spec, p, s_in, state, pool_window):
+    """``snn._conv_step`` with the unfused chain (bias add, lif_step,
+    OR-pool) after the same conv kernel."""
+    from repro_torch.core import lif, snn
+    cur = ops.spike_conv_train(s_in, p["w"], stride=spec.stride,
+                               padding=spec.padding)
+    u, s = lif.lif_step(state[0], state[1], snn._add_bias(cur, p["b"], None),
+                        spec.lif)
+    return u, s, snn._or_pool(s, pool_window) if pool_window else s
+
+
+@pytest.mark.cuda
+def test_cuda_net5_shaped_step_equals_the_unfused_chain(cuda, monkeypatch):
+    """A net-5-shaped net (Conv32-P2-Conv32-P2-Dense-Dense) trained one
+    step on the default backend: its loss and every gradient equal those
+    of the step with the unfused epilogue, the conv biases' to fp32
+    summation order and every other leaf bit for bit."""
+    from repro_torch.core import snn, train_snn
+    cfg = snn.SNNConfig("net-5-small", (32, 32, 2),
+                        (snn.Conv(32, 3), snn.MaxPool(2), snn.Conv(32, 3),
+                         snn.MaxPool(2), snn.Dense(64), snn.Dense(11)),
+                        num_classes=11, num_steps=6)
+    gen = torch.Generator().manual_seed(56)
+    params = snn.init_params(gen, cfg, device=cuda)
+    for q, gain in zip(params, (5.0, 0, 3.0, 0, 2.0, 2.0)):
+        if q:
+            q["w"] = q["w"] * gain
+            q["b"] = torch.randn(q["b"].shape, generator=gen).to(cuda) * 0.1
+    x = (torch.rand((4, 6, 32, 32, 2), generator=gen) < 0.2).float().to(cuda)
+    y = torch.arange(4).to(cuda)
+    enc = torch.Generator(device=cuda)
+    runs = []
+    for unfused in (False, True):
+        if unfused:
+            monkeypatch.setattr(snn, "_conv_step", _unfused_conv_step)
+        leaves = [{k: v.clone().requires_grad_() for k, v in q.items()}
+                  for q in params]
+        ops.reset_launch_counts()
+        loss = train_snn.loss_fn(cfg, leaves, enc, x, y,
+                                 matmul_backend="spike_gemm_fused")
+        grads = torch.autograd.grad(loss, [v for q in leaves
+                                           for v in q.values()])
+        torch.cuda.synchronize()
+        runs.append((loss, grads, ops.launch_counts()["conv_epilogue"]))
+    (l0, g0, n0), (l1, g1, n1) = runs
+    assert (n0, n1) == (4 * cfg.num_steps, 0)
+    assert torch.equal(l0, l1)
+    keys = [(i, k) for i, q in enumerate(params) for k in q]
+    for (i, k), a, b in zip(keys, g0, g1):
+        assert a.abs().sum() > 0, (i, k)
+        if k == "b" and isinstance(cfg.layers[i], snn.Conv):
+            torch.testing.assert_close(a, b, rtol=1e-5,
+                                       atol=1e-5 * a.abs().max().item())
+        else:
+            assert torch.equal(a, b), (i, k)

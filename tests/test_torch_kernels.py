@@ -618,10 +618,15 @@ class TestDispatch:
         ops.lif_step(torch.zeros(8, 6), torch.zeros(8, 6), torch.ones(8, 6),
                      beta=0.9, threshold=1.0)
         ops.penc_compact(s, 16)
+        m = torch.zeros(1, 5, 5, 4)
+        u, _, pooled = ops.conv_lif_step(m.requires_grad_(), torch.zeros(4),
+                                         m, m, beta=0.9, threshold=1.0,
+                                         pool_window=2)
+        (u.sum() + pooled.sum()).backward()
         assert ops.launch_counts() == {"spike_gemm": 0, "spike_gemm_lif": 0,
                                        "spike_conv": 0, "spike_gemm_dw": 0,
                                        "spike_gemm_ds": 0, "lif_step": 0,
-                                       "penc_compact": 0}
+                                       "penc_compact": 0, "conv_epilogue": 0}
 
     @pytest.mark.parametrize("launch", [
         lambda: spike_gemm.spike_gemm_cuda(

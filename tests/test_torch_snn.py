@@ -22,8 +22,9 @@ import torch
 from repro.core import encoding as jenc
 from repro.core import lif as jlif
 from repro.core import snn as jsnn
-from repro_torch import convert
+from repro_torch import convert, spans
 from repro_torch.core import encoding, lif, snn
+from repro_torch.kernels import ops
 
 torch.set_num_threads(2)
 
@@ -331,3 +332,199 @@ class TestApplyDefaultBeta:
         assert out.shape == want_out.shape
         assert (out != want_out).mean() <= 0.01
         assert want_out.sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# The conv epilogue as one step (ops.conv_lif_step) against the unfused
+# chain snn._add_bias + lif.lif_step + snn._OrPool, on the CPU, bit for bit
+# ---------------------------------------------------------------------------
+
+EPI_STEPS = 3
+
+
+def _epilogue_case(shape, cells, seed=0):
+    """Per step a bias-free conv output (a leaf), a bias leaf, and the
+    cotangents of the pooled and the last membranes: normal values that
+    put a share of ``u`` near the threshold."""
+    gen = torch.Generator().manual_seed(seed)
+    lead = () if cells is None else (cells,)
+    f = shape[-1]
+    curs = [(torch.randn(lead + shape, generator=gen) * 0.8 + 0.4)
+            .requires_grad_() for _ in range(EPI_STEPS)]
+    bias = (torch.randn(lead + (f,), generator=gen) * 0.1).requires_grad_()
+    return curs, bias, gen
+
+
+def _chain(curs, bias, lif_p, window, cells, fused):
+    """EPI_STEPS steps of one conv layer's epilogue from zero state:
+    fused (``ops.conv_lif_step``) or the unfused chain.  Returns the
+    per-step (u, s, out) with out the pooled spikes (or s)."""
+    z = torch.zeros_like(curs[0].detach())
+    u, s = z, z
+    steps = []
+    for cur in curs:
+        if fused:
+            res = ops.conv_lif_step(
+                cur, bias, u, s, beta=lif_p.beta, threshold=lif_p.threshold,
+                slope=lif_p.slope, reset_mechanism=lif_p.reset_mechanism,
+                pool_window=window)
+            u, s = res[:2]
+            out = res[2] if window else s
+        else:
+            x = snn._add_bias(cur, bias, cells)
+            u, s = lif.lif_step(u, s, x, lif_p)
+            out = snn._or_pool(s, window) if window else s
+        steps.append((u, s, out))
+    return steps
+
+
+def _loss_of(steps, gen_seed):
+    """A loss that reads each step's out and the last u once: s has no
+    reader outside the layer but its pool (or the loss) and the next
+    step's reset, as in the model."""
+    gen = torch.Generator().manual_seed(gen_seed)
+    loss = 0
+    for _, _, out in steps:
+        loss = loss + (out * torch.randn(out.shape, generator=gen)).sum()
+    u = steps[-1][0]
+    return loss + (u * torch.randn(u.shape, generator=gen)).sum()
+
+
+class TestConvEpilogue:
+    @pytest.mark.parametrize("cells", [None, 2], ids=["solo", "slab2"])
+    @pytest.mark.parametrize("shape", [(2, 8, 8, 4), (2, 9, 7, 3)],
+                             ids=["even", "ragged"])
+    @pytest.mark.parametrize("reset", ["subtract", "zero"])
+    def test_forward_and_every_gradient_equal_the_chain(self, reset, shape,
+                                                        cells):
+        lif_p = lif.LIFParams(reset_mechanism=reset)
+        for window in (2, None):
+            curs, bias, _ = _epilogue_case(shape, cells)
+            runs = []
+            for fused in (True, False):
+                leaves = [c.detach().clone().requires_grad_() for c in curs]
+                b = bias.detach().clone().requires_grad_()
+                steps = _chain(leaves, b, lif_p, window, cells, fused)
+                grads = torch.autograd.grad(_loss_of(steps, 7), leaves + [b])
+                runs.append((steps, grads))
+            (got, got_g), (want, want_g) = runs
+            for a, w in zip(got, want):
+                for x, y in zip(a, w):
+                    assert x.shape == y.shape and torch.equal(x, y)
+            assert sum(float(s.detach().sum()) for _, s, _ in want) > 0
+            for x, y in zip(got_g, want_g):
+                assert torch.equal(x, y)
+            assert all(float(g.abs().sum()) > 0 for g in want_g)
+
+    def test_ragged_edge_gets_no_pool_gradient(self):
+        curs, bias, _ = _epilogue_case((1, 5, 5, 2), None)
+        z = torch.zeros(1, 5, 5, 2)
+        _, _, pooled = ops.conv_lif_step(curs[0], bias, z, z, beta=0.95,
+                                         threshold=1.0, pool_window=2)
+        assert pooled.shape == (1, 2, 2, 2)
+        (d_cur,) = torch.autograd.grad(pooled.sum(), curs[0])
+        assert d_cur[:, :4, :4].any()
+        assert not d_cur[:, 4].any() and not d_cur[:, :, 4].any()
+
+    def test_no_grad_saves_nothing_and_equals(self):
+        curs, bias, _ = _epilogue_case((2, 9, 7, 3), None)
+        z = torch.zeros(2, 9, 7, 3)
+        with torch.no_grad():
+            got = ops.conv_lif_step(curs[0], bias, z, z, beta=0.95,
+                                    threshold=1.0, pool_window=2)
+            x = snn._add_bias(curs[0], bias, None)
+            u, s = lif.lif_step(z, z, x, lif.LIFParams())
+            want = (u, s, snn._or_pool(s, 2))
+        assert all(g.grad_fn is None for g in got)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+
+    def test_refuses_a_window_past_a_byte_and_an_unknown_reset(self):
+        z = torch.zeros(1, 4, 4, 2)
+        b = torch.zeros(2)
+        with pytest.raises(ValueError, match="windows"):
+            ops.conv_lif_step(z, b, z, z, beta=0.9, threshold=1.0,
+                              pool_window=17)
+        with pytest.raises(ValueError, match="reset"):
+            ops.conv_lif_step(z, b, z, z, beta=0.9, threshold=1.0,
+                              reset_mechanism="hard")
+
+
+def _plain_conv_step(spec, p, s_in, state, pool_window):
+    """``snn._conv_step`` with the unfused epilogue: the chain the
+    ``torch`` backend runs, after the kernel backends' conv."""
+    cur = ops.spike_conv_train(s_in, p["w"], stride=spec.stride,
+                               padding=spec.padding)
+    cells = None if cur.dim() == 4 else cur.shape[0]
+    u, s = lif.lif_step(state[0], state[1],
+                        snn._add_bias(cur, p["b"], cells), spec.lif)
+    return u, s, snn._or_pool(s, pool_window) if pool_window else s
+
+
+class TestConvEpilogueInTheNet:
+    @pytest.mark.parametrize("cells", [None, 2], ids=["solo", "slab2"])
+    @pytest.mark.parametrize("hw", [(12, 12), (13, 11)],
+                             ids=["even", "ragged"])
+    @pytest.mark.parametrize("reset", ["subtract", "zero"])
+    def test_loss_and_gradients_equal_the_unfused_chain(
+            self, monkeypatch, reset, hw, cells):
+        """A Conv-MaxPool-Conv-MaxPool-Dense net trained one step on the
+        default backend: the loss, every gradient and every layer's train
+        equal those of the same step with the conv epilogue unfused."""
+        p = lif.LIFParams(reset_mechanism=reset)
+        cfg = snn.SNNConfig("conv-net", hw + (2,),
+                            (snn.Conv(4, 3, lif=p), snn.MaxPool(2),
+                             snn.Conv(4, 3, lif=p), snn.MaxPool(2),
+                             snn.Dense(6, p)), num_classes=3, pcr=2,
+                            num_steps=4)
+        assert cfg.conv_pool_windows == (2, None, 2, None, None)
+        gen = torch.Generator().manual_seed(3)
+        params = snn.init_params(gen, cfg, device="cpu")
+        for q, gain in zip(params, (4.0, 0, 3.0, 0, 2.0)):
+            if q:
+                q["w"] = q["w"] * gain
+                q["b"] = torch.randn(q["b"].shape, generator=gen) * 0.1
+        lead = (4,) if cells is None else (4, cells)
+        if cells is not None:
+            params = [{k: torch.stack([v, v.flip(0) * 0.9])
+                       for k, v in q.items()} for q in params]
+        x = (torch.rand(lead + (3,) + cfg.input_shape, generator=gen)
+             < 0.3).float()
+        runs = []
+        for unfused in (False, True):
+            if unfused:
+                monkeypatch.setattr(snn, "_conv_step", _plain_conv_step)
+            leaves = [{k: v.clone().requires_grad_() for k, v in q.items()}
+                      for q in params]
+            trains = snn.apply(cfg, leaves, x, return_all_layers=True)
+            out = trains[-1]
+            loss = (out * torch.linspace(-1, 1, out.shape[-1])).sum()
+            grads = torch.autograd.grad(
+                loss, [v for q in leaves for v in q.values()])
+            runs.append((trains, loss, grads))
+        (t0, l0, g0), (t1, l1, g1) = runs
+        assert torch.equal(l0, l1)
+        assert all(torch.equal(a, b) for a, b in zip(t0, t1))
+        assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+        assert all(float(t.detach().sum()) > 0 for t in t0)
+        assert all(float(g.abs().sum()) > 0 for g in g0)
+
+    def test_the_pool_layer_runs_no_pass_of_its_own(self):
+        cfg = snn.SNNConfig("c", (6, 6, 2), (snn.Conv(3), snn.MaxPool(2),
+                                             snn.MaxPool(1), snn.Dense(4)),
+                            num_classes=4, num_steps=2)
+        assert cfg.conv_pool_windows == (2, None, None, None)
+        params = snn.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+        states = snn.init_states(cfg, 2, torch.device("cpu"))
+        s_in = (torch.rand(2, 6, 6, 2) < 0.5).float()
+        for backend in snn.MATMUL_BACKENDS:
+            with spans.recording() as records:
+                new, spikes = snn.step(cfg, params, states, s_in,
+                                       matmul_backend=backend)
+            names = [r.name for r in records]
+            fused = backend != "torch"
+            assert ("fwd.pool1" in names) != fused
+            assert "fwd.pool2" in names
+            assert new[1] is None and new[2] is None
+            assert spikes[0].shape == (2, 6, 6, 3)

@@ -172,9 +172,12 @@ def test_one_training_step_spans_its_phases_and_layers():
     assert {r.step for r in records} == {records[top].step}
     assert all(r.end_ns is not None for r in records)
     by_name = Counter(r.name for r in records)
-    spiking_and_pool = len(cfg.layers)
+    # a span a layer a time step, but for the MaxPool the conv's epilogue
+    # pools
+    spiking = len(cfg.spiking_layers())
     fwd = [r for r in records if r.name.startswith("fwd.")]
-    assert len(fwd) == cfg.num_steps * spiking_and_pool
+    assert len(fwd) == cfg.num_steps * spiking
+    assert by_name["fwd.pool1"] == 0
     assert all(records[r.parent].name == "forward" for r in fwd)
     # one bwd span per backward of a Function: the graph of the same loss
     # holds one node per Function call
@@ -183,7 +186,8 @@ def test_one_training_step_spans_its_phases_and_layers():
     nodes = _function_nodes(train_snn.loss_fn(
         cfg, leaves, enc, x, y, matmul_backend="spike_gemm_fused"))
     assert by_name["bwd.conv"] == nodes["_SpikeConvTrainBackward"] == 3
-    assert by_name["bwd.pool"] == nodes["_OrPoolBackward"] == 3
+    assert by_name["bwd.epilogue"] == nodes["_ConvLifStepBackward"] == 3
+    assert by_name["bwd.pool"] == nodes["_OrPoolBackward"] == 0
     assert by_name["bwd.dense"] == nodes["_SpikeGemmLifStepBackward"] == 3
     for i, r in enumerate(records):
         if r.name.startswith("bwd."):
@@ -287,8 +291,8 @@ def test_cuda_a_kernel_lies_inside_its_span_on_the_device_clock(cuda):
 @pytest.mark.cuda
 def test_cuda_net5_step_launch_counts(cuda):
     """One net-5 training step (T = 124, B = 64) on the default backend:
-    per time step 3 fused dense steps, 2 convs, 5 dW and 4 dS (conv1's
-    input needs no gradient)."""
+    per time step 3 fused dense steps, 2 convs, 2 conv epilogues each way,
+    5 dW and 4 dS (conv1's input needs no gradient)."""
     cfg = snn.SNNConfig(
         "net-5", (128, 128, 2),
         (snn.Conv(32, 3), snn.MaxPool(2), snn.Conv(32, 3), snn.MaxPool(2),
@@ -303,7 +307,8 @@ def test_cuda_net5_step_launch_counts(cuda):
         torch.cuda.synchronize()
     assert ops.launch_counts() == dict(
         dict.fromkeys(ops.KERNELS, 0), spike_gemm_lif=372, spike_conv=248,
-        spike_gemm_dw=620, spike_gemm_ds=496)
+        spike_gemm_dw=620, spike_gemm_ds=496, conv_epilogue=496)
     names = Counter(r.name for r in records)
-    assert sum(n for k, n in names.items() if k.startswith("fwd.")) == 868
+    assert sum(n for k, n in names.items() if k.startswith("fwd.")) == 620
     assert sum(n for k, n in names.items() if k.startswith("bwd.")) == 868
+    assert names["bwd.epilogue"] == 248 and names["bwd.pool"] == 0
