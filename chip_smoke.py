@@ -75,7 +75,10 @@ script then exits non-zero and never prints its result line):
    of dvs-conv and its ``data_seed=17`` shard with ``stack=True`` against
    the serial run, with equal frontiers; the slab's and a solo miss's wall
    time and cells a minute, the slab's peak memory, and a profile of one
-   slab step against one solo step (device busy share, kernels a step).
+   replayed slab step against one replayed solo step (each after its
+   warm-up and capture; device busy share, kernels a step), each replay's
+   kernels by name equal to its eager warm-up's, as the profiler lists
+   them, and its launch counts equal too.
    Then the DSE service over the fleet (6d), in another temporary root:
    a ``DSEService(workers="cluster")`` stepping on its background thread
    (``start``/``stop``) and two spawned ``fleet.run_worker`` processes on
@@ -516,6 +519,31 @@ def median_ms(torch, fn, reps=25, warmup=3) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+
+def profiled_names(torch, step) -> collections.Counter:
+    """The device kernels of one call of ``step`` under the profiler, by
+    name, copies and fills of memory left out: a CUDA graph's replay lists
+    its in-graph copies as kernels (``memcpy32_post``), and the copies into
+    its static inputs and out of its outputs are the replay's own, so an
+    eager step and a replay of it compare equal under this count.  The
+    profiler can miss the first kernels launched after it starts (an eager
+    step's first fills and its first conv), so spin kernels run first,
+    their trace left out."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        step()
+        torch.cuda.synchronize()
+    return collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "spin_kernel" not in e.name
+        and not e.name.lower().startswith(("memcpy", "memset")))
 
 
 def step_profile(torch, step, top: int = 0) -> dict:
@@ -3427,14 +3455,38 @@ def main() -> int:
                      xb.expand((SLAB_CELLS,) + tuple(xb.shape)).contiguous(),
                      yb.expand(SLAB_CELLS, -1).contiguous())}
         for name, (fn, p, st, g, x, y) in steps.items():
-            fn(p, st, g, x, y)                          # warm-up
+            # the eager warm-up, profiled, then the capture; a replay must
+            # launch the eager step's kernels, as the profiler lists them,
+            # and count them
+            ops.reset_launch_counts()
+            eager_names = profiled_names(torch, lambda: fn(p, st, g, x, y))
+            eager_launches = ops.launch_counts()
+            fn(p, st, g, x, y)
+            ops.reset_launch_counts()
+            replay_names = profiled_names(torch, lambda: fn(p, st, g, x, y))
+            replay_launches = ops.launch_counts()
             st_ = slab[f"{name}_step"] = step_profile(
                 torch, lambda: fn(p, st, g, x, y))
             log(f"  one {name} training step: {st_['wall_ms']:.1f} ms "
                 f"unprofiled, device busy {st_['device_busy_ms']:.1f} ms "
                 + (f"({st_['busy_share']:.0%})" if st_["kernels"] else
                    "(the profiler recorded no device time: not measured)")
-                + f", {st_['kernels']} device kernels")
+                + f", {st_['kernels']} device kernels; a replay's "
+                f"{sum(replay_names.values())} other than copies and "
+                f"fills, by name, against the eager step's "
+                f"{sum(eager_names.values())}")
+            if not (eager_names and replay_names):
+                log(f"  the profiler recorded no kernel of the eager or the "
+                    f"replayed {name} step: their kernels not compared")
+            elif replay_names != eager_names:
+                raise AssertionError(
+                    f"a replayed {name} step launched other kernels than "
+                    f"the eager one: {(replay_names - eager_names) or {}} "
+                    f"more, {(eager_names - replay_names) or {}} fewer")
+            if replay_launches != eager_launches:
+                raise AssertionError(
+                    f"a replayed {name} step counted {replay_launches}, "
+                    f"the eager step {eager_launches}")
         del steps, inits, slab_p
         report["slab"] = slab
 

@@ -6,7 +6,10 @@ Training runs the T-step loop of ``snn.apply`` forward and lets autograd
 run it backward (BPTT): the fast-sigmoid surrogate of ``lif.spike_fn`` (or
 of the fused kernel's backward), then on the kernel backends the block-skip
 dW and dS kernels for every Dense and Conv layer.  The optimizer is
-``optim.adam`` with the JAX package's arithmetic.
+``optim.adam`` with the JAX package's arithmetic.  On the card the whole
+step, forward, BPTT and update, is captured into one CUDA graph at its
+second call and replayed after (``step_graph``); on the CPU it runs
+eagerly.
 
 Every entry point threads ``matmul_backend`` (one of
 ``snn.MATMUL_BACKENDS``) down to ``snn.apply``.  The backends give the same
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import optim, spans
-from repro_torch.core import encoding, snn
+from repro_torch.core import encoding, snn, step_graph
 from repro_torch.core.accelerator import cycle_model
 from repro_torch.data import synthetic
 from repro_torch.device import DeviceLike, resolve
@@ -99,28 +102,36 @@ def stacked_loss_fn(cfg: snn.SNNConfig, params: snn.Params, generators,
 
 def _step_on(loss_of, tx: optim.GradientTransform):
     """A train step on ``loss_of(params, generator(s), x, y)``, a scalar
-    loss or a slab's (C,) losses, whose sum is differentiated.  It runs in
-    a ``step`` span (``repro_torch.spans``) whose children are
-    ``forward``, ``backward`` and ``optimizer``."""
+    loss or a slab's (C,) losses, whose sum is differentiated.  On the card
+    it runs as one CUDA graph a signature after an eager warm-up
+    (``step_graph.StepGraphs``).  Every call runs in a ``step`` span
+    (``repro_torch.spans``); the eager call and the capture open its
+    children ``forward``, ``backward`` and ``optimizer``, a replay none."""
+
+    def eager(params, opt_state, generator, x, y):
+        leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+                  for p in params]
+        with spans.span("forward"):
+            loss = loss_of(leaves, generator, x, y)
+        flat = [v for p in leaves for v in p.values()]
+        with spans.span("backward"):
+            grads_flat = iter(torch.autograd.grad(
+                loss if loss.dim() == 0 else loss.sum(), flat))
+        grads = [{k: next(grads_flat) for k in p} for p in leaves]
+        with torch.no_grad(), spans.span("optimizer"):
+            updates, opt_state = tx.update(grads, opt_state, params)
+            params = optim.apply_updates(params, updates)
+        # the graph, held by ``loss``, is freed here, inside the step
+        return params, opt_state, loss.detach()
+
+    graphs = step_graph.StepGraphs(eager)
 
     def train_step(params, opt_state, generator, x, y):
         with spans.span(spans.STEP):
-            leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
-                      for p in params]
-            with spans.span("forward"):
-                loss = loss_of(leaves, generator, x, y)
-            flat = [v for p in leaves for v in p.values()]
-            with spans.span("backward"):
-                grads_flat = iter(torch.autograd.grad(
-                    loss if loss.dim() == 0 else loss.sum(), flat))
-            grads = [{k: next(grads_flat) for k in p} for p in leaves]
-            with torch.no_grad(), spans.span("optimizer"):
-                updates, opt_state = tx.update(grads, opt_state, params)
-                params = optim.apply_updates(params, updates)
-            # the graph, held by ``loss``, is freed here, inside the step
-            loss = loss.detach()
-        return params, opt_state, loss
+            return graphs(params, opt_state, generator, x, y)
 
+    # a test hook: tests reach the step's graphs and its eager ``fn`` here
+    train_step.graphs = graphs
     return train_step
 
 
@@ -128,8 +139,9 @@ def make_train_step(cfg: snn.SNNConfig, tx: optim.GradientTransform,
                     matmul_backend: Optional[str] = None):
     """One step of the training loop, ``(params, opt_state, generator, x,
     y) -> (params, opt_state, loss)``: the loss and its gradient by BPTT,
-    then the optimizer's update.  Returns new parameter tensors; the
-    arguments are not changed in place."""
+    then the optimizer's update; on the card, a CUDA graph replayed from
+    the second call of each signature on.  Returns new parameter tensors;
+    the arguments are not changed in place."""
     backend = snn.resolve_matmul_backend(matmul_backend)
     return _step_on(lambda p, gen, x, y: loss_fn(cfg, p, gen, x, y,
                                                  matmul_backend=backend), tx)

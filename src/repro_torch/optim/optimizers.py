@@ -72,7 +72,9 @@ def _weak(c: float, x: torch.Tensor):
 
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    # a fill on the device: a CUDA graph can capture it, where a copy from
+    # the host of ``torch.tensor`` would wait for the stream
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 def global_norm(tree: Tree) -> torch.Tensor:

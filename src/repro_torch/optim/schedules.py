@@ -14,8 +14,9 @@ def _step(step) -> torch.Tensor:
 
 def constant_schedule(value: float):
     def schedule(step):
-        return torch.tensor(value, dtype=torch.float32,
-                            device=_step(step).device)
+        # a fill on the device, which a CUDA graph can capture
+        return torch.full((), value, dtype=torch.float32,
+                          device=_step(step).device)
 
     return schedule
 

@@ -927,3 +927,179 @@ def test_cuda_net5_shaped_step_equals_the_unfused_chain(cuda, monkeypatch):
                                        atol=1e-5 * a.abs().max().item())
         else:
             assert torch.equal(a, b), (i, k)
+
+
+# ---------------------------------------------------------------------------
+# The train step as one CUDA graph (core/step_graph.py)
+# ---------------------------------------------------------------------------
+
+def _net5_layers(num_steps):
+    from repro_torch.core import snn
+    return snn.SNNConfig(
+        "net-5", (128, 128, 2),
+        (snn.Conv(32, 3), snn.MaxPool(2), snn.Conv(32, 3), snn.MaxPool(2),
+         snn.Dense(512), snn.Dense(256), snn.Dense(11)),
+        num_classes=11, num_steps=num_steps)
+
+
+def _step_batch(cfg, cuda, seed, batch, rate, cells=None):
+    """(x, y) on the card: events (B, T, H, W, C) at about 2%, or
+    intensities (B, H, W, C) below 0.2 for a rate code; with ``cells``,
+    a slab's (C, B, ...)."""
+    gen = torch.Generator().manual_seed(seed)
+    lead = (cells,) if cells else ()
+    if rate:
+        x = torch.rand(lead + (batch,) + cfg.input_shape, generator=gen) / 5
+    else:
+        x = (torch.rand(lead + (batch, cfg.num_steps) + cfg.input_shape,
+                        generator=gen) < 0.02).float()
+    y = torch.randint(0, cfg.num_classes, lead + (batch,), generator=gen)
+    return x.to(cuda), y.to(cuda)
+
+
+def _tree_leaves(tree):
+    from torch.utils import _pytree as pytree
+    return pytree.tree_leaves(tree)
+
+
+def _same(a, b):
+    la, lb = _tree_leaves(a), _tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(u, v)
+                                      for u, v in zip(la, lb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["events", "rate", "slab"])
+@pytest.mark.parametrize("backend", ["spike_gemm", "spike_gemm_fused"])
+def test_cuda_graphed_step_equals_the_eager_step(cuda, backend, kind):
+    """net-5's layers at T = 6: a warm-up and 5 replayed steps equal 6
+    eager steps bit for bit (losses, params, Adam's moments, the
+    generators' states); what call k returned is unchanged after call
+    k + 1; a replayed step counts the launches an eager step does."""
+    from repro_torch import optim
+    from repro_torch.core import train_snn
+    cfg = _net5_layers(6)
+    tx = optim.adam(2e-3)
+    cells = 3 if kind == "slab" else None
+    rate = kind == "rate"
+    if cells:
+        step = train_snn.make_stacked_train_step(cfg, tx, backend)
+        inits = [train_snn.init_cell(cfg, tx, s, device=cuda)
+                 for s in range(cells)]
+        params = [{k: torch.stack([i[0][n][k] for i in inits]) for k in p}
+                  for n, p in enumerate(inits[0][0])]
+        opt_state = tx.init(params)
+        gen = [i[2] for i in inits]
+        eager_gen = [torch.Generator(device=cuda).manual_seed(s)
+                     for s in range(cells)]
+        gens = (gen, eager_gen)
+    else:
+        step = train_snn.make_train_step(cfg, tx, backend)
+        params, opt_state, gen = train_snn.init_cell(cfg, tx, 4, device=cuda)
+        eager_gen = torch.Generator(device=cuda).manual_seed(4)
+        gens = ([gen], [eager_gen])
+    eager_fn = step.graphs.fn
+    eager = (params, opt_state)
+    returned = []
+    for k in range(6):
+        x, y = _step_batch(cfg, cuda, 60 + k, 4 if not cells else 2, rate,
+                           cells)
+        ops.reset_launch_counts()
+        params, opt_state, loss = step(params, opt_state, gen, x, y)
+        torch.cuda.synchronize()
+        graphed_launches = ops.launch_counts()
+        ops.reset_launch_counts()
+        *eager, eager_loss = eager_fn(*eager, eager_gen, x, y)
+        torch.cuda.synchronize()
+        assert graphed_launches == ops.launch_counts(), k
+        assert sum(graphed_launches.values()) > 0
+        assert torch.equal(loss, eager_loss), k
+        assert _same((params, opt_state), tuple(eager)), k
+        for old, kept in returned:
+            assert _same(old, kept), k
+        out = (params, opt_state, loss)
+        returned.append((out, [t.clone() for t in _tree_leaves(out)]))
+    for g, e in zip(*gens):
+        assert torch.equal(g.get_state(), e.get_state())
+    assert [g is not None for g in step.graphs.graphs.values()] == [True]
+
+
+@pytest.mark.cuda
+def test_cuda_a_new_batch_shape_makes_a_new_graph(cuda):
+    """B = 4, then B = 2, then B = 4 again: each shape warms up eagerly,
+    is captured at its second call and replayed after, every step equal
+    to the eager one."""
+    from repro_torch import optim
+    from repro_torch.core import train_snn
+    cfg = _net5_layers(4)
+    tx = optim.adam(2e-3)
+    step = train_snn.make_train_step(cfg, tx, "spike_gemm_fused")
+    params, opt_state, gen = train_snn.init_cell(cfg, tx, 9, device=cuda)
+    eager = (params, opt_state)
+    eager_gen = torch.Generator(device=cuda).manual_seed(9)
+    made = []
+    for k, batch in enumerate((4, 4, 4, 2, 2, 2, 4)):
+        x, y = _step_batch(cfg, cuda, 80 + k, batch, rate=True)
+        params, opt_state, loss = step(params, opt_state, gen, x, y)
+        *eager, eager_loss = step.graphs.fn(*eager, eager_gen, x, y)
+        assert torch.equal(loss, eager_loss), k
+        assert _same((params, opt_state), tuple(eager)), k
+        made.append(sum(g is not None for g in step.graphs.graphs.values()))
+    assert made == [0, 1, 1, 1, 2, 2, 2]
+
+
+def _profiled_kernels(step):
+    """The device kernels one call of ``step`` launches, by name, as the
+    profiler lists them; copies and fills of memory left out (a replay
+    lists its in-graph copies as kernels, and copies its inputs in and
+    its outputs out).  The profiler can miss the first kernels launched
+    after it starts, so spin kernels run first, their trace left out."""
+    import time
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        step()
+        torch.cuda.synchronize()
+    return Counter(e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "spin_kernel" not in e.name
+                   and not e.name.lower().startswith(("memcpy", "memset")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["solo", "slab"])
+def test_cuda_a_replay_launches_the_eager_steps_kernels(cuda, kind):
+    """As the profiler sees them, not as the counters add up: a replayed
+    step runs every kernel of the eager step, and no other."""
+    from repro_torch import optim
+    from repro_torch.core import train_snn
+    cfg = _net5_layers(4)
+    tx = optim.adam(2e-3)
+    cells = 3 if kind == "slab" else None
+    if cells:
+        step = train_snn.make_stacked_train_step(cfg, tx, "spike_gemm_fused")
+        inits = [train_snn.init_cell(cfg, tx, s, device=cuda)
+                 for s in range(cells)]
+        params = [{k: torch.stack([i[0][n][k] for i in inits]) for k in p}
+                  for n, p in enumerate(inits[0][0])]
+        opt_state = tx.init(params)
+        gen = [i[2] for i in inits]
+    else:
+        step = train_snn.make_train_step(cfg, tx, "spike_gemm_fused")
+        params, opt_state, gen = train_snn.init_cell(cfg, tx, 5, device=cuda)
+    x, y = _step_batch(cfg, cuda, 90, 2, False, cells)
+
+    def call():
+        step(params, opt_state, gen, x, y)
+
+    eager = _profiled_kernels(call)               # the warm-up
+    call()                                        # the capture
+    replay = _profiled_kernels(call)
+    assert [g is not None for g in step.graphs.graphs.values()] == [True]
+    assert sum(eager.values()) > 0
+    assert replay == eager

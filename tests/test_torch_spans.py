@@ -1,7 +1,9 @@
 """``repro_torch.spans``: spans off and on, their parents and step ids
 across threads, the spans of one training step, and their clock against
 the profiler's; on the card (marked ``cuda``), the same for autograd's
-device thread, a kernel on the device clock, and net-5's launch counts.
+device thread, a kernel on the device clock, net-5's launch counts, and
+the spans of the train step's CUDA graph: its capture opens an eager
+step's spans, a replay the ``step`` span alone.
 
 This file imports no JAX, so its card tests run where only PyTorch is
 installed: ``PYTHONPATH=src python -m pytest -m cuda
@@ -250,6 +252,8 @@ def test_cuda_backward_spans_fall_under_backward(cuda):
     cfg = _small_net()
     step, params, opt_state, enc, x, y = _step_inputs(cfg, cuda)
     step(params, opt_state, enc, x, y)            # builds the kernels
+    # a new step's first call runs eagerly (a replay opens no phase span)
+    step, params, opt_state, enc, x, y = _step_inputs(cfg, cuda)
     with spans.recording() as records:
         step(params, opt_state, enc, x, y)
         torch.cuda.synchronize()
@@ -312,3 +316,27 @@ def test_cuda_net5_step_launch_counts(cuda):
     assert sum(n for k, n in names.items() if k.startswith("fwd.")) == 620
     assert sum(n for k, n in names.items() if k.startswith("bwd.")) == 868
     assert names["bwd.epilogue"] == 248 and names["bwd.pool"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_a_replayed_step_opens_its_step_span_alone(cuda):
+    """The warm-up and the capture run the step's Python and open every
+    span of an eager step; a replay opens the ``step`` span only, and
+    counts the launches an eager step does."""
+    cfg = _small_net()
+    step, params, opt_state, enc, x, y = _step_inputs(cfg, cuda)
+    names, launches = [], []
+    for _ in range(3):
+        ops.reset_launch_counts()
+        with spans.recording() as records:
+            step(params, opt_state, enc, x, y)
+            torch.cuda.synchronize()
+        names.append(Counter(r.name for r in records))
+        launches.append(ops.launch_counts())
+    eager, capture, replay = names
+    assert capture == eager
+    assert eager["forward"] == eager["backward"] == 1
+    assert eager["bwd.dense"] == cfg.num_steps
+    assert replay == Counter({spans.STEP: 1})
+    assert launches[0] == launches[1] == launches[2]
+    assert launches[0]["spike_gemm_lif"] == cfg.num_steps
